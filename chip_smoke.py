@@ -8,8 +8,13 @@ Phases (any failed check exits non-zero and prints no result):
              parallel) and print the build seconds;
   2. kernels each hand-written kernel against its plain PyTorch version on
              the same CUDA inputs (numpy seed), with torch.equal, at the
-             main-path shapes, at N = 2048 and 65536 for the NTT pair, and
-             with a batched leading dim; kernel and plain ms by CUDA events;
+             main-path shapes, at N = 2048 and 65536, and with a batched
+             leading dim; the key switch and the mod-down also at every
+             cluster size the kernels take (forced), with the device ms of
+             each at the main shape, and with the device kernels of one
+             wrapper call counted by the profiler (the iNTT's launches plus
+             one; plus the slice copy for the mod-down); kernel and plain
+             ms by CUDA events;
   3. main    the production uint32 chain (logN=15, 22 limbs, alpha=8
              special primes, h=192): keygen (relin, Galois steps 1/2/4/8 and
              conjugation, public key), then requests that encode, encrypt,
@@ -59,6 +64,7 @@ REPLACES = {
     "keyswitch": "fhe_gpt2_tpu/core/tks.py:262",
     "moddown": "fhe_gpt2_tpu/core/tks.py:157",
 }
+CLUSTER_KERNELS = ("keyswitch", "moddown")
 SOURCES = {
     "ntt_fwd": "fhe_gpt2_tpu_torch/csrc/ntt.cu",
     "ntt_inv": "fhe_gpt2_tpu_torch/csrc/ntt.cu",
@@ -103,19 +109,32 @@ def profile_chain(torch, fn, reps: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
     kern = [e for e in prof.key_averages() if e.device_type == cuda]
     busy_us = sum(e.self_device_time_total for e in kern)
+    check(busy_us > 0, "torch.profiler recorded no device time")
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
     return {"device_ms": busy_us / 1e3 / reps,
             "launches": sum(e.count for e in kern) / reps,
             "top": [(e.key[:70], e.self_device_time_total / 1e3 / reps,
                      e.count / reps) for e in top]}
+
+
+def kernels_per_call(torch, fn) -> int:
+    """Device kernels one call of fn launches, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.count for e in prof.key_averages() if e.device_type == cuda)
 
 
 def bound(nbytes: float, muls: float) -> tuple[float, str]:
@@ -236,17 +255,52 @@ def run() -> dict:
         kern[name]["bound_ms"], kern[name]["bound_by"] = bound(
             *ntt_cost(L, L, n))
 
-    # Key switch at the relinearize shape (l=22, D=3, A=8, J=30), batched M=2.
+    # Key switch at the relinearize shape (l=22, D=3, A=8, J=30), batched
+    # M=2, at the size cluster_for picks and at every size the kernel takes;
+    # then logN 11 and 16 at levels 5 (narrow last digit) and 4.
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     ft = ctx.fused_ks_tables(L)
     J = len(ctx.key_limbs(L))
     kdata = residues(torch, rng, tkey.moduli, (2, ft.D), n, word_tensor)
     for lead in ((), (2,)):
         c = residues(torch, rng, ctx.moduli[:L], lead, n, word_tensor)
-        same("keyswitch", tks.fused_switch_key(c, kdata, t22, tkey, ft),
-             tks.switch_key_plain(c, kdata, t22, tkey, ft), f"lead {lead}")
+        want = tks.switch_key_plain(c, kdata, t22, tkey, ft)
+        for cl in (None, *tks.cluster_sizes(ctx.logn)):
+            same("keyswitch", tks.fused_switch_key(c, kdata, t22, tkey, ft,
+                                                   cluster=cl),
+                 want, f"lead {lead} cluster {cl}")
+    small = {}
+    for logn in (11, 16):
+        small[logn] = sctx = CkksContext(CkksParams.create(
+            logn=logn, log_q0=29, log_scale=25, num_levels=5, log_special=31,
+            num_special=2, hamming_weight=32))
+        for lv in (5, 4):
+            sft = sctx.fused_ks_tables(lv)
+            slt, skt = sctx.tables(lv), sctx.tables(sctx.key_limbs(lv))
+            skd = residues(torch, rng, skt.moduli, (2, sft.D), sctx.n,
+                           word_tensor)
+            for lead in ((), (2,)):
+                c = residues(torch, rng, sctx.moduli[:lv], lead, sctx.n,
+                             word_tensor)
+                want = tks.switch_key_plain(c, skd, slt, skt, sft)
+                for cl in tks.cluster_sizes(logn):
+                    same("keyswitch", tks.fused_switch_key(
+                        c, skd, slt, skt, sft, cluster=cl), want,
+                        f"logN {logn} level {lv} lead {lead} cluster {cl}")
     c = residues(torch, rng, ctx.moduli[:L], (), n, word_tensor)
     timed("keyswitch", lambda: tks.fused_switch_key(c, kdata, t22, tkey, ft),
           lambda: tks.switch_key_plain(c, kdata, t22, tkey, ft), 20, 3)
+    intt_launches = 1 + ctx.logn - tntt.seg_log_for(ctx.logn, L, sms)
+    got = kernels_per_call(torch, lambda: tks.fused_switch_key(
+        c, kdata, t22, tkey, ft))
+    check(got == intt_launches + 1, f"keyswitch: {got} device kernels per "
+          f"call, want the iNTT's {intt_launches} + 1")
+    kern["keyswitch"]["kernels_per_call"] = got
+    kern["keyswitch"]["cluster"] = tks.cluster_for(ctx.logn, J, sms)
+    kern["keyswitch"]["device_ms_by_cluster"] = {
+        cl: profile_chain(torch, lambda: tks.fused_switch_key(
+            c, kdata, t22, tkey, ft, cluster=cl), 10)["device_ms"]
+        for cl in tks.cluster_sizes(ctx.logn)}
     b_i, m_i = ntt_cost(L, L, n)                         # iNTT of c
     b_f, m_f = ntt_cost(ft.D * J, J, n)                  # NTT of t
     words_io = L * n + 2 * ft.D * J * n + 2 * J * n      # c, key, out
@@ -256,26 +310,54 @@ def run() -> dict:
         4.0 * words_io + (b_i - 8.0 * L * n) + (b_f - 8.0 * ft.D * J * n),
         muls)
 
-    # Mod-down: key-switch shape [2, 30, N] -> [2, 22, N]; the composite pair.
+    # Mod-down: key-switch shape [2, 30, N] -> [2, 22, N], batched [3, 2],
+    # the composite pair, each at every cluster size; then logN 11 and 16.
     sp_idx = tuple(ctx.L + i for i in range(ctx.k_sp))
     fmd = ctx.fused_md_tables(L)
     tsp = ctx.tables(sp_idx)
     xs = residues(torch, rng, ctx.moduli[:L] + ctx.special, (2,), n,
                   word_tensor)
-    same("moddown", tks.fused_mod_down(xs, tsp, t22, fmd),
-         tks.mod_down_plain(xs, tsp, t22, fmd), "keyswitch [2,30,N]")
     xb = residues(torch, rng, ctx.moduli[:L] + ctx.special, (3, 2), n,
                   word_tensor)
-    same("moddown", tks.fused_mod_down(xb, tsp, t22, fmd),
-         tks.mod_down_plain(xb, tsp, t22, fmd), "batched [3,2,30,N]")
-    cl = cctx.L
-    cpair = cctx.fused_md_tables(cl, pair=True)
-    cargs = (cctx.tables(tuple(range(cl - 2, cl))), cctx.tables(cl - 2), cpair)
+    cl_ = cctx.L
+    cpair = cctx.fused_md_tables(cl_, pair=True)
+    cargs = (cctx.tables(tuple(range(cl_ - 2, cl_))), cctx.tables(cl_ - 2),
+             cpair)
     xc = residues(torch, rng, cctx.moduli, (2,), n, word_tensor)
-    same("moddown", tks.fused_mod_down(xc, *cargs),
-         tks.mod_down_plain(xc, *cargs), "composite pair [2,10,N]")
+    md_cases = [("keyswitch [2,30,N]", xs, (tsp, t22, fmd)),
+                ("batched [3,2,30,N]", xb, (tsp, t22, fmd)),
+                ("composite pair [2,10,N]", xc, cargs)]
+    for logn, sctx in small.items():
+        sdrop = tuple(sctx.L + i for i in range(sctx.k_sp))
+        md_cases.append((f"logN {logn} [2,7,N]", residues(
+            torch, rng, sctx.moduli + sctx.special, (2,), sctx.n, word_tensor),
+            (sctx.tables(sdrop), sctx.tables(sctx.L),
+             sctx.fused_md_tables(sctx.L))))
+        pctx = CkksContext(CkksParams.create_composite(
+            logn=logn, num_levels=2, num_special=3, hamming_weight=32))
+        md_cases.append((f"logN {logn} composite pair [2,6,N]", residues(
+            torch, rng, pctx.moduli, (2,), pctx.n, word_tensor),
+            (pctx.tables((pctx.L - 2, pctx.L - 1)), pctx.tables(pctx.L - 2),
+             pctx.fused_md_tables(pctx.L, pair=True))))
+    for what, x, args in md_cases:
+        want = tks.mod_down_plain(x, *args)
+        for cl in (None, *tks.cluster_sizes(args[1].logn)):
+            same("moddown", tks.fused_mod_down(x, *args, cluster=cl), want,
+                 f"{what} cluster {cl}")
     timed("moddown", lambda: tks.fused_mod_down(xs, tsp, t22, fmd),
           lambda: tks.mod_down_plain(xs, tsp, t22, fmd), 20, 3)
+    intt_launches = 1 + ctx.logn - tntt.seg_log_for(ctx.logn, 2 * ctx.k_sp,
+                                                    sms)
+    got = kernels_per_call(torch, lambda: tks.fused_mod_down(xs, tsp, t22,
+                                                             fmd))
+    check(got == 1 + intt_launches + 1, f"moddown: {got} device kernels per "
+          f"call, want the copy + the iNTT's {intt_launches} + 1")
+    kern["moddown"]["kernels_per_call"] = got
+    kern["moddown"]["cluster"] = tks.cluster_for(ctx.logn, 2 * L, sms)
+    kern["moddown"]["device_ms_by_cluster"] = {
+        cl: profile_chain(torch, lambda: tks.fused_mod_down(
+            xs, tsp, t22, fmd, cluster=cl), 10)["device_ms"]
+        for cl in tks.cluster_sizes(ctx.logn)}
     k = ctx.k_sp
     b_i, m_i = ntt_cost(2 * k, k, n)
     b_f, m_f = ntt_cost(2 * L, L, n)
@@ -289,6 +371,12 @@ def run() -> dict:
             f"(device {kern[name]['device_ms']:.4f} ms, plain "
             f"{kern[name]['plain_ms']:.3f} ms, bound "
             f"{kern[name]['bound_ms']:.4f} ms by {kern[name]['bound_by']})")
+    for name in CLUSTER_KERNELS:
+        k = kern[name]
+        log(f"  {name}: {k['kernels_per_call']} device kernels per call; "
+            f"cluster {k['cluster']} picked; device ms by cluster size "
+            + ", ".join(f"C={c}: {v:.4f}"
+                        for c, v in k["device_ms_by_cluster"].items()))
 
     # -- 3. main path at production width ------------------------------------
     t0 = time.perf_counter()
@@ -383,16 +471,12 @@ def run() -> dict:
                       "mult_relin_rescale_ops_s": 1e3 / ms_rs,
                       "mult_relin_rescale_ms": ms_rs, "dyadic_ms": ms_mul}
     prof = profile_chain(torch, mult_relin, reps=10)
-    if prof["device_ms"] > 0:
-        idle = 1.0 - prof["device_ms"] / ms
-        log(f"profile: ct-mult+relin device time {prof['device_ms']:.3f} ms "
-            f"of {ms:.3f} ms per op (device idle {100 * idle:.1f}%), "
-            f"{prof['launches']:.0f} kernel launches per op")
-        for name, kms, cnt in prof["top"]:
-            log(f"  {kms:.4f} ms  x{cnt:.0f}  {name}")
-        prof["idle_share"] = idle
-    else:
-        log("profile: the profiler recorded no device time (not measured)")
+    prof["idle_share"] = idle = 1.0 - prof["device_ms"] / ms
+    log(f"profile: ct-mult+relin device time {prof['device_ms']:.3f} ms "
+        f"of {ms:.3f} ms per op (device idle {100 * idle:.1f}%), "
+        f"{prof['launches']:.0f} kernel launches per op")
+    for name, kms, cnt in prof["top"]:
+        log(f"  {kms:.4f} ms  x{cnt:.0f}  {name}")
     result["profile"] = prof
 
     # -- 6. report ----------------------------------------------------------------

@@ -41,12 +41,10 @@ _ENTRIES = {
         "ntt_inverse": "ppppppp" + "l" + "iii" + "p",
     },
     "keyswitch": {
-        "ks_convert_mac": "pppppp" + "iiiii" + "p",
-        "ks_key_mac": "pppppppp" + "iiiii" + "p",
+        "ks_fused": "p" * 15 + "i" * 8 + "p",
     },
     "moddown": {
-        "md_convert": "ppppppppp" + "iiii" + "p",
-        "md_finish": "pppppp" + "iiii" + "p",
+        "md_fused": "p" * 18 + "i" * 6 + "p",
     },
 }
 
@@ -83,6 +81,13 @@ def _nvcc() -> str:
                        "CUDA toolkit is installed (set CUDA_HOME)")
 
 
+def nvcc_command(src: Path, out: Path) -> list[str]:
+    """The nvcc command that builds src (its headers beside it) into the
+    shared library out."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(src.parent), "-o", str(out),
+            str(src)]
+
+
 def build() -> dict[str, Path]:
     """Compile every source that is not yet built for this hash, in
     parallel; returns {name: library path}. Raises on any compiler error."""
@@ -91,12 +96,10 @@ def build() -> dict[str, Path]:
     libs = {name: out_dir / f"lib{name}.so" for name in SOURCES}
     todo = [n for n in SOURCES if not libs[n].exists()]
     if todo:
-        nvcc = _nvcc()
         procs = []
         for name in todo:
             tmp = out_dir / f"lib{name}.so.tmp{os.getpid()}"
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
+            cmd = nvcc_command(CSRC / f"{name}.cu", tmp)
             procs.append((name, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -112,26 +115,30 @@ def build() -> dict[str, Path]:
     return libs
 
 
+def load(path: Path, name: str) -> ctypes.CDLL:
+    """Load a library built from csrc/<name>.cu and type its C entries."""
+    lib = ctypes.CDLL(str(path))
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong}
+    for fn, sig in _ENTRIES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = [kinds[c] for c in sig]
+        f.restype = ctypes.c_int
+    return lib
+
+
 def _lib(name: str) -> ctypes.CDLL:
     if name not in _libs:
-        path = build()[name]
-        lib = ctypes.CDLL(str(path))
-        kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int,
-                 "l": ctypes.c_longlong}
-        for fn, sig in _ENTRIES[name].items():
-            f = getattr(lib, fn)
-            f.argtypes = [kinds[c] for c in sig]
-            f.restype = ctypes.c_int
-        _libs[name] = lib
+        _libs[name] = load(build()[name], name)
     return _libs[name]
 
 
-def call(lib: str, fn: str, *args) -> None:
+def call(lib: str, fn: str, *args, cdll: ctypes.CDLL | None = None) -> None:
     """Launch one C entry on the current stream; raise if it reports an
-    error. Tensors are passed by data pointer, the stream last."""
+    error. Tensors are passed by data pointer, the stream last. ``cdll``
+    takes the entry from another build of csrc/<lib>.cu than this tree's."""
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(_lib(lib), fn)(*conv, stream)
+    rc = getattr(cdll or _lib(lib), fn)(*conv, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {lib}.{fn} failed: error {rc}")
 

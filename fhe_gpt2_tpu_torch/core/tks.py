@@ -2,14 +2,16 @@
 ``fhe_gpt2_tpu/core/tks.py``.
 
 ``fused_switch_key`` replaces the Pallas ``_ks_kernel`` (decompose → NTT →
-key MAC in one TPU program per key limb); on the card it is the iNTT kernel,
-the per-digit ``y`` operands as torch ops (XLA ops in the JAX package), and
-``csrc/keyswitch.cu``'s convert-MAC and splice+key-MAC kernels around the
-forward NTT kernel. ``fused_mod_down`` replaces the Pallas ``_md_kernel``
-(convert → correct → NTT → subtract·P⁻¹); on the card it is the iNTT kernel
-on the dropped limbs, the ``v`` operands as torch ops, and
-``csrc/moddown.cu``'s convert and finish kernels around the forward NTT.
-Each source carries its note on what bounds it and what its design does.
+key MAC in one TPU program per key limb); on the card it is the iNTT kernel
+(``csrc/ntt.cu``) and then one launch of ``csrc/keyswitch.cu``, one
+thread-block cluster per (batch, key limb) that forms each digit's
+base-converted limb, runs its NTT across the cluster's shared memory
+(``csrc/ntt_cluster.cuh``) and accumulates the key product in registers.
+``fused_mod_down`` replaces the Pallas ``_md_kernel`` (convert → correct →
+NTT → subtract·P⁻¹); on the card it is a copy of the dropped limbs, their
+iNTT, and one launch of ``csrc/moddown.cu``, one cluster per (batch, output
+limb). Each source carries its note on what bounds it and what its design
+does. ``cluster_for`` picks the cluster size; ``cluster=`` forces it.
 
 Route: CUDA tensors launch the kernels (or the wrapper raises); CPU tensors
 run the plain versions below, which nothing on the card path calls:
@@ -26,10 +28,74 @@ import numpy as np
 import torch
 
 from . import _cuda, rns
-from .modmath import add_mod, sub_mod, mul_mod, mul_mod_shoup, mod_sum, \
-    word_tensor
+from .modmath import sub_mod, mul_mod, mul_mod_shoup, mod_sum, shoup, \
+    to_numpy_u32, word_tensor
 from .ntt import NttTables, _intt_stages, _ntt_stages
-from .tntt import ntt_forward, ntt_inverse
+from .tntt import _sms, ntt_inverse
+
+
+# ---------------------------------------------------------------------------
+# Cluster geometry (both kernels)
+# ---------------------------------------------------------------------------
+
+MAX_CLUSTER = 8            # portable thread-block cluster size
+CLUSTER_THREADS = 512      # most threads per CTA (the kernels' launch bound)
+CLUSTER_WORDS = 16         # most words per thread: the key switch keeps two
+                           # accumulators and the digit's words in registers
+
+
+def cluster_sizes(logn: int) -> tuple[int, ...]:
+    """The cluster sizes C the kernels take at N = 2^logn: powers of two
+    up to 8 whose N/C words fit CLUSTER_THREADS threads of at most
+    CLUSTER_WORDS words each (and so at most 32 KB of shared memory)."""
+    if not 2 <= logn <= 16:
+        raise ValueError(f"the cluster kernels cover logN 2..16, not {logn}")
+    n = 1 << logn
+    return tuple(c for c in (1, 2, 4, MAX_CLUSTER)
+                 if 4 <= n // c <= CLUSTER_THREADS * CLUSTER_WORDS)
+
+
+def cluster_threads(logn: int, c: int) -> int:
+    """Threads per CTA for N/C words: CLUSTER_THREADS, or N/(2C) (two words
+    per thread) for small limbs; N/C is always a multiple of it."""
+    return min(CLUSTER_THREADS, ((1 << logn) // c) // 2)
+
+
+def ctas_per_sm(words: int) -> int:
+    """CTAs of either cluster kernel that one SM holds at `words` words per
+    thread: the minimum of their ``__launch_bounds__``, which caps their
+    registers to fit (``cluster_ctas_per_sm`` in csrc/ntt_cluster.cuh)."""
+    return 2 if words <= 8 else 1
+
+
+def cluster_for(logn: int, clusters: int, sms: int) -> int:
+    """Cluster size for `clusters` independent limbs of N = 2^logn words on
+    `sms` SMs. Each thread's work is W = N/(C·threads) words: pick the C
+    that minimises waves x W, waves = ceil(clusters·C / (sms ·
+    ctas_per_sm(W))); ties go to the smaller C (fewer cluster barriers)."""
+    def cost(c):
+        w = (1 << logn) // c // cluster_threads(logn, c)
+        return -(-clusters * c // (sms * ctas_per_sm(w))) * w, c
+    return min(cluster_sizes(logn), key=cost)
+
+
+def _check_cluster(logn: int, cluster: int | None) -> None:
+    if cluster is not None and cluster not in cluster_sizes(logn):
+        raise ValueError(f"cluster {cluster} not in {cluster_sizes(logn)} "
+                         f"for logN={logn}")
+
+
+def _check_aligned(x: torch.Tensor, name: str) -> None:
+    # The kernels move each thread's words with 8- and 16-byte accesses.
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: data must start on a 16-byte boundary")
+
+
+def _geometry(logn: int, clusters: int, x: torch.Tensor,
+              cluster: int | None) -> tuple[int, int]:
+    """(log2 C, threads per CTA) of one launch."""
+    c = cluster or cluster_for(logn, clusters, _sms(x.device))
+    return c.bit_length() - 1, cluster_threads(logn, c)
 
 
 # ---------------------------------------------------------------------------
@@ -45,7 +111,10 @@ class FusedKsTables:
     bcts: tuple               # per-digit rns.BaseConvTables (plain version)
     own: torch.Tensor         # [D, J] int32: digit d owns data limb j
     pw: torch.Tensor          # [D, J, A] (Q_d/q_a) mod q_j, zero-padded
-    gather: torch.Tensor      # [D*A] int64 source limb of (d, a), pad -> 0
+    pw_shoup: torch.Tensor    # [D, J, A] Shoup word of pw for q_j
+    mont: torch.Tensor        # [3, J] -q_j^-1 mod 2^32, 2^32 mod q_j, its
+                              # Shoup word (the kernel's key product)
+    gather: torch.Tensor      # [D*A] int32 source limb of (d, a), pad -> 0
     inv_punc: torch.Tensor    # [D, A, 1] (pad rows 0)
     inv_punc_shoup: torch.Tensor
     src_q: torch.Tensor       # [D, A, 1] (pad rows 1)
@@ -60,7 +129,8 @@ def make_fused_ks_tables(ctx, level: int) -> FusedKsTables:
     A = max(len(g) for g in groups)
     own = np.zeros((D, J), dtype=np.int32)
     pw = np.zeros((D, J, A), dtype=np.uint64)
-    gather = np.zeros((D, A), dtype=np.int64)
+    pw_sh = np.zeros((D, J, A), dtype=np.uint64)
+    gather = np.zeros((D, A), dtype=np.int32)
     ipunc = np.zeros((D, A, 1), dtype=np.uint64)
     ipunc_sh = np.zeros((D, A, 1), dtype=np.uint64)
     srcq = np.ones((D, A, 1), dtype=np.uint64)
@@ -73,17 +143,24 @@ def make_fused_ks_tables(ctx, level: int) -> FusedKsTables:
         gather[d, :w] = g
         for a, i in enumerate(g):
             qa = ctx.moduli[i]
-            pw[d, :, a] = [(S // qa) % ctx.all_moduli[j]
-                           for j in ctx.key_limbs(level)]
+            for jj, j in enumerate(ctx.key_limbs(level)):
+                qj = ctx.all_moduli[j]
+                pw[d, jj, a] = (S // qa) % qj
+                pw_sh[d, jj, a] = shoup(int(pw[d, jj, a]), qj)
             iv = pow((S // qa) % qa, -1, qa)
             ipunc[d, a, 0] = iv
             ipunc_sh[d, a, 0] = (iv << 32) // qa
             srcq[d, a, 0] = qa
+    qs = [ctx.all_moduli[j] for j in ctx.key_limbs(level)]
+    mont = [[(-pow(q, -1, 1 << 32)) % (1 << 32) for q in qs],
+            [(1 << 32) % q for q in qs],
+            [shoup((1 << 32) % q, q) for q in qs]]
     dev = ctx.device
     return FusedKsTables(
-        D=D, A=A, bcts=bcts,
+        D=D, A=A, bcts=bcts, mont=word_tensor(mont, dev),
         own=torch.from_numpy(own).to(dev),
-        pw=word_tensor(pw, dev), gather=torch.from_numpy(gather.ravel()).to(dev),
+        pw=word_tensor(pw, dev), pw_shoup=word_tensor(pw_sh, dev),
+        gather=torch.from_numpy(gather.ravel()).to(dev),
         inv_punc=word_tensor(ipunc, dev), inv_punc_shoup=word_tensor(ipunc_sh, dev),
         src_q=word_tensor(srcq, dev))
 
@@ -123,33 +200,41 @@ def switch_key_plain(c_ntt, kdata, lt, kt, ft: FusedKsTables):
 
 
 def fused_switch_key(c_ntt: torch.Tensor, kdata: torch.Tensor,
-                     lt: NttTables, kt: NttTables,
-                     ft: FusedKsTables) -> torch.Tensor:
+                     lt: NttTables, kt: NttTables, ft: FusedKsTables,
+                     cluster: int | None = None) -> torch.Tensor:
     """Decompose + NTT + key MAC of NTT-form c_ntt[*B, l, N] against the
     active key digits kdata[2, D, J, N]. Returns [2, *B, J, N] before the
-    mod-down; equals ``_ks_mac_core(_decompose_core(...))``."""
+    mod-down; equals ``_ks_mac_core(_decompose_core(...))``. ``cluster``
+    forces the kernel's cluster size (one of ``cluster_sizes``)."""
+    _check_cluster(kt.logn, cluster)
     if c_ntt.device.type == "cpu":
         return switch_key_plain(c_ntt, kdata, lt, kt, ft)
     *lead, l, n = c_ntt.shape
     M = int(np.prod(lead)) if lead else 1
-    D, A = ft.D, ft.A
-    J = kt.q.shape[0]
+    D, J = ft.D, kt.q.shape[0]
     _cuda.check_operand(c_ntt, "c_ntt")
     _cuda.check_operand(kdata, "kdata", (2, D, J, n))
-    if ft.own.shape != (D, J) or lt.q.shape[0] != l:
+    _check_aligned(c_ntt, "c_ntt")
+    _check_aligned(kdata, "kdata")
+    if ft.own.shape != (D, J) or lt.q.shape[0] != l or kt.n != n:
         raise ValueError("key-switch tables do not match the operand level")
+    log_c, threads = _geometry(kt.logn, M * J, c_ntt, cluster)
     c_coeff = ntt_inverse(c_ntt, lt)
-    g = c_coeff.reshape(M, l, n).index_select(1, ft.gather).reshape(M, D, A, n)
-    y = mul_mod_shoup(g, ft.inv_punc, ft.inv_punc_shoup, ft.src_q)
-    t = torch.empty((M, D, J, n), dtype=torch.int32, device=c_ntt.device)
-    _cuda.call("keyswitch", "ks_convert_mac", y, ft.pw, kt.q, kt.ratio0,
-               kt.ratio1, t, M, D, A, J, n)
-    tn = ntt_forward(t, kt)
     out = torch.empty((2, M, J, n), dtype=torch.int32, device=c_ntt.device)
-    _cuda.call("keyswitch", "ks_key_mac", c_ntt, tn, kdata, ft.own, kt.q,
-               kt.ratio0, kt.ratio1, out, M, D, J, l, n)
+    _cuda.call("keyswitch", "ks_fused", *ks_fused_args(
+        c_coeff, c_ntt, kdata, kt, ft, out, log_c, threads))
     _cuda.LAUNCHES["keyswitch"] += 1
     return out.reshape(2, *lead, J, n)
+
+
+def ks_fused_args(c_coeff, c_ntt, kdata, kt: NttTables, ft: FusedKsTables,
+                  out, log_c: int, threads: int) -> tuple:
+    """The arguments of the C entry ``ks_fused`` but the stream, in its
+    order; out is [2, M, J, N]."""
+    M, J, l = out.shape[1], out.shape[2], c_ntt.shape[-2]
+    return (c_coeff, c_ntt, kdata, ft.own, ft.pw, ft.pw_shoup, ft.gather,
+            ft.inv_punc, ft.inv_punc_shoup, ft.src_q, kt.q, ft.mont, kt.roots,
+            kt.roots_shoup, out, M, ft.D, ft.A, J, l, kt.logn, log_c, threads)
 
 
 # ---------------------------------------------------------------------------
@@ -164,10 +249,19 @@ class FusedMdTables:
     mdt: rns.ModDownTables
     k: int
     l: int
+    punc_shoup: torch.Tensor     # [k, l] Shoup word of (P/p_i) mod q_j
+    p_mod_q_shoup: torch.Tensor  # [l, 1] Shoup word of P mod q_j
 
 
 def make_fused_md_tables(mdt: rns.ModDownTables, kt: NttTables) -> FusedMdTables:
-    return FusedMdTables(mdt=mdt, k=mdt.half_p.shape[0], l=kt.q.shape[0])
+    q = to_numpy_u32(kt.q).ravel().astype(np.uint64)
+    punc = to_numpy_u32(mdt.bct.punc_mod_dst).astype(np.uint64)
+    pmodq = to_numpy_u32(mdt.p_mod_q).ravel().astype(np.uint64)
+    dev = kt.q.device
+    return FusedMdTables(
+        mdt=mdt, k=mdt.half_p.shape[0], l=kt.q.shape[0],
+        punc_shoup=word_tensor((punc << np.uint64(32)) // q, dev),
+        p_mod_q_shoup=word_tensor(((pmodq << np.uint64(32)) // q)[:, None], dev))
 
 
 def mod_down_plain(x: torch.Tensor, t_sp: NttTables, t_q: NttTables,
@@ -182,30 +276,37 @@ def mod_down_plain(x: torch.Tensor, t_sp: NttTables, t_q: NttTables,
 
 
 def fused_mod_down(x: torch.Tensor, t_sp: NttTables, t_q: NttTables,
-                   ft: FusedMdTables) -> torch.Tensor:
+                   ft: FusedMdTables, cluster: int | None = None) -> torch.Tensor:
     """One-shot divide-and-round of NTT-form x[..., l+k, N] by P = prod of
     the k trailing primes (HPS, float32 overflow correction clamped to
-    [0, k-1]). Returns [..., l, N]."""
+    [0, k-1]). Returns [..., l, N]. ``cluster`` forces the kernel's cluster
+    size (one of ``cluster_sizes``)."""
+    _check_cluster(t_q.logn, cluster)
     if x.device.type == "cpu":
         return mod_down_plain(x, t_sp, t_q, ft)
     *lead, lk, n = x.shape
     k, l = ft.k, ft.l
-    if lk != l + k or t_sp.q.shape[0] != k:
+    if lk != l + k or t_sp.q.shape[0] != k or t_q.n != n:
         raise ValueError(f"mod-down operand has {lk} limbs, tables {l}+{k}")
     M = int(np.prod(lead)) if lead else 1
     _cuda.check_operand(x, "x")
-    mdt = ft.mdt
+    _check_aligned(x, "x")
+    log_c, threads = _geometry(t_q.logn, M * l, x, cluster)
     a = ntt_inverse(x[..., l:, :].contiguous(), t_sp)
-    v = mul_mod_shoup(add_mod(a, mdt.half_p, mdt.bct.src_q),
-                      mdt.bct.inv_punc, mdt.bct.inv_punc_shoup, mdt.bct.src_q)
-    v = v.contiguous()
-    img = torch.empty((M, l, n), dtype=torch.int32, device=x.device)
-    _cuda.call("moddown", "md_convert", v, mdt.bct.punc_mod_dst, mdt.p_invf,
-               mdt.p_mod_q, mdt.half_q, t_q.q, t_q.ratio0, t_q.ratio1, img,
-               M, k, l, n)
-    z = ntt_forward(img, t_q)
     out = torch.empty((M, l, n), dtype=torch.int32, device=x.device)
-    _cuda.call("moddown", "md_finish", x, z, mdt.inv_p, mdt.inv_p_shoup,
-               t_q.q, out, M, l, k, n)
+    _cuda.call("moddown", "md_fused", *md_fused_args(a, x, t_q, ft, out,
+                                                     log_c, threads))
     _cuda.LAUNCHES["moddown"] += 1
     return out.reshape(*lead, l, n)
+
+
+def md_fused_args(a, x, t_q: NttTables, ft: FusedMdTables, out, log_c: int,
+                  threads: int) -> tuple:
+    """The arguments of the C entry ``md_fused`` but the stream, in its
+    order; a is the iNTT of the dropped limbs, out is [M, l, N]."""
+    mdt = ft.mdt
+    return (a, x, mdt.half_p, mdt.bct.inv_punc, mdt.bct.inv_punc_shoup,
+            mdt.bct.src_q, mdt.bct.punc_mod_dst, ft.punc_shoup, mdt.p_invf,
+            mdt.p_mod_q, ft.p_mod_q_shoup, mdt.half_q, mdt.inv_p,
+            mdt.inv_p_shoup, t_q.q, t_q.roots, t_q.roots_shoup, out,
+            out.shape[0], ft.k, ft.l, t_q.logn, log_c, threads)

@@ -25,17 +25,12 @@ __device__ __forceinline__ uint32_t mul_shoup(uint32_t a, uint32_t w, uint32_t w
   return r >= q ? r - q : r;
 }
 
-// Barrett: a*b mod q for any a, b < 2^31, with ratio = floor(2^64 / q).
-// p < 2^62 gives qhat in {floor(p/q) - 1, floor(p/q)}, so r < 2q.
-__device__ __forceinline__ uint32_t mul_mod(uint32_t a, uint32_t b, uint32_t q,
-                                            uint64_t ratio) {
-  uint64_t p = (uint64_t)a * b;
-  uint64_t qhat = __umul64hi(p, ratio);
-  uint64_t r = p - qhat * q;
-  return (uint32_t)(r >= q ? r - q : r);
-}
-
-__device__ __forceinline__ uint64_t barrett_ratio(const uint32_t* r0, const uint32_t* r1,
-                                                  int j) {
-  return ((uint64_t)r1[j] << 32) | r0[j];
+// Montgomery: a*b*2^-32 mod q for a, b < q < 2^31, qneg = -q^-1 mod 2^32.
+// t = a*b + m*q is a multiple of 2^32 below 2^63, and t / 2^32 < q^2/2^32 + q
+// < 1.5q, so one conditional subtraction makes it canonical.
+__device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b, uint32_t q, uint32_t qneg) {
+  const uint64_t p = (uint64_t)a * b;
+  const uint32_t m = (uint32_t)p * qneg;
+  const uint32_t r = (uint32_t)((p + (uint64_t)m * q) >> 32);
+  return r >= q ? r - q : r;
 }

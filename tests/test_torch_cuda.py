@@ -55,33 +55,54 @@ def test_ntt_kernels_equal_plain(cuda, logn):
     assert torch.equal(nttmod.intt(want, t), x)
 
 
-def _ctx(cuda, composite):
+def _ctx(cuda, composite, logn=12):
     if composite:
-        p = CkksParams.create_composite(logn=12, num_levels=2, num_special=3,
+        p = CkksParams.create_composite(logn=logn, num_levels=2, num_special=3,
                                         hamming_weight=32)
     else:
-        p = CkksParams.create(logn=12, log_q0=29, log_scale=25, num_levels=5,
+        p = CkksParams.create(logn=logn, log_q0=29, log_scale=25, num_levels=5,
                               log_special=31, num_special=2, hamming_weight=32)
     return CkksContext(p, device=cuda)
 
 
-@pytest.mark.parametrize("level_from_top,lead", [(0, ()), (1, (2,)), (3, ())])
-def test_keyswitch_kernel_equals_plain(cuda, level_from_top, lead):
-    ctx = _ctx(cuda, composite=False)
-    level = ctx.L - level_from_top
+_CTX = {}
+
+
+def _cached_ctx(cuda, composite, logn):
+    if (composite, logn) not in _CTX:
+        _CTX[composite, logn] = _ctx(cuda, composite, logn)
+    return _CTX[composite, logn]
+
+
+def _forced(logns):
+    """(logN, C) for every cluster size the kernels take at each logN, and
+    C = None (the size ``cluster_for`` picks)."""
+    return [(lg, c) for lg in logns for c in (None, *tks.cluster_sizes(lg))]
+
+
+# Levels 1, 3 and 5 end in a narrow digit (alpha = 2); 2 and 4 do not.
+@pytest.mark.parametrize("logn,cluster", _forced((11, 15, 16)))
+@pytest.mark.parametrize("level", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("lead", [(), (2,)])
+def test_keyswitch_kernel_equals_plain(cuda, logn, cluster, level, lead):
+    ctx = _cached_ctx(cuda, False, logn)
     ft = ctx.fused_ks_tables(level)
     lt, kt = ctx.tables(level), ctx.tables(ctx.key_limbs(level))
     rng = np.random.default_rng(level)
     c = _residues(rng, ctx.moduli[:level], lead, ctx.n, cuda)
     kdata = _residues(rng, kt.moduli, (2, ft.D), ctx.n, cuda)
-    got = tks.fused_switch_key(c, kdata, lt, kt, ft)
+    got = tks.fused_switch_key(c, kdata, lt, kt, ft, cluster=cluster)
+    torch.cuda.synchronize()
     assert torch.equal(got, tks.switch_key_plain(c, kdata, lt, kt, ft))
 
 
+@pytest.mark.parametrize("logn,cluster", _forced((11, 15, 16)))
 @pytest.mark.parametrize("composite,pair", [(False, False), (True, False),
                                             (True, True)])
-def test_moddown_kernel_equals_plain(cuda, composite, pair):
-    ctx = _ctx(cuda, composite)
+@pytest.mark.parametrize("lead", [(), (2,), (3, 2)])
+def test_moddown_kernel_equals_plain(cuda, logn, cluster, composite, pair,
+                                     lead):
+    ctx = _cached_ctx(cuda, composite, logn)
     level = ctx.L
     if pair:
         drop = tuple(range(level - 2, level))
@@ -90,11 +111,46 @@ def test_moddown_kernel_equals_plain(cuda, composite, pair):
         drop = tuple(ctx.L + i for i in range(ctx.k_sp))
         out_l, mods = level, ctx.moduli[:level] + ctx.special
     ft = ctx.fused_md_tables(level, pair=pair)
-    x = _residues(np.random.default_rng(5), mods, (2, 3), ctx.n, cuda)
+    x = _residues(np.random.default_rng(5), mods, lead, ctx.n, cuda)
     args = (ctx.tables(drop), ctx.tables(out_l), ft)
-    got = tks.fused_mod_down(x, *args)
-    assert got.shape == (2, 3, out_l, ctx.n)
+    got = tks.fused_mod_down(x, *args, cluster=cluster)
+    torch.cuda.synchronize()
+    assert got.shape == (*lead, out_l, ctx.n)
     assert torch.equal(got, tks.mod_down_plain(x, *args))
+
+
+def test_wrappers_launch_one_kernel_after_the_intt(cuda):
+    """One fused_switch_key call is the iNTT's launches plus one kernel; one
+    fused_mod_down call is a copy, the iNTT's launches and one kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    ctx = _cached_ctx(cuda, False, 15)
+    level = ctx.L
+    ft = ctx.fused_ks_tables(level)
+    lt, kt = ctx.tables(level), ctx.tables(ctx.key_limbs(level))
+    rng = np.random.default_rng(0)
+    c = _residues(rng, ctx.moduli[:level], (), ctx.n, cuda)
+    kdata = _residues(rng, kt.moduli, (2, ft.D), ctx.n, cuda)
+    sp = ctx.tables(tuple(ctx.L + i for i in range(ctx.k_sp)))
+    x = _residues(rng, ctx.moduli[:level] + ctx.special, (2,), ctx.n, cuda)
+    fmd = ctx.fused_md_tables(level)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+
+    def intt_launches(rows):
+        return 1 + ctx.logn - tntt.seg_log_for(ctx.logn, rows, sms)
+
+    for fn, want in (
+            (lambda: tks.fused_switch_key(c, kdata, lt, kt, ft),
+             intt_launches(level) + 1),
+            (lambda: tks.fused_mod_down(x, sp, ctx.tables(level), fmd),
+             1 + intt_launches(2 * ctx.k_sp) + 1)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = torch.autograd.DeviceType.CUDA
+        got = sum(e.count for e in prof.key_averages() if e.device_type == dev)
+        assert got == want
 
 
 @pytest.mark.parametrize("composite", [False, True])
