@@ -8,13 +8,13 @@ Phases (any failed check exits non-zero and prints no result):
              parallel) and print the build seconds;
   2. kernels each hand-written kernel against its plain PyTorch version on
              the same CUDA inputs (numpy seed), with torch.equal, at the
-             main-path shapes, at N = 2048 and 65536, and with a batched
-             leading dim; the key switch and the mod-down also at every
-             cluster size the kernels take (forced), with the device ms of
-             each at the main shape, and with the device kernels of one
-             wrapper call counted by the profiler (the iNTT's launches plus
-             one; plus the slice copy for the mod-down); kernel and plain
-             ms by CUDA events;
+             main-path shapes (the NTTs also on limb slices read in place),
+             at N = 2048 and 65536, and with a batched leading dim, at every
+             cluster size the kernels take (forced) and the one cluster_for
+             picks, with the device ms of each size at the main shapes, and
+             with the device kernels of one wrapper call counted by the
+             profiler (1 per NTT; the iNTT plus one for the key switch and
+             the mod-down); kernel and plain ms by CUDA events;
   3. main    the production uint32 chain (logN=15, 22 limbs, alpha=8
              special primes, h=192): keygen (relin, Galois steps 1/2/4/8 and
              conjugation, public key), then requests that encode, encrypt,
@@ -26,8 +26,9 @@ Phases (any failed check exits non-zero and prints no result):
              multiply+relin+rescale (the mod-down kernel's pair path);
   5. rate    ct-mult+relin ops/s as a dependent chain at phase 3's shape,
              and mult+relin+rescale ops/s, by CUDA events; then the device
-             time, kernel launches and top kernels of one ct-mult+relin from
-             torch.profiler, and the device's idle share;
+             time, kernel launches and top kernels of one ct-mult+relin and
+             of one mult+relin+rescale from torch.profiler, and the device's
+             idle share;
   6. report  one JSON line of kernels, the card's name and power limit, and
              the last line {"ok": true, "device": {...}}.
 
@@ -64,7 +65,6 @@ REPLACES = {
     "keyswitch": "fhe_gpt2_tpu/core/tks.py:262",
     "moddown": "fhe_gpt2_tpu/core/tks.py:157",
 }
-CLUSTER_KERNELS = ("keyswitch", "moddown")
 SOURCES = {
     "ntt_fwd": "fhe_gpt2_tpu_torch/csrc/ntt.cu",
     "ntt_inv": "fhe_gpt2_tpu_torch/csrc/ntt.cu",
@@ -202,6 +202,7 @@ def run() -> dict:
         f"{ctx.L}, k={ctx.k_sp}, digits={ctx.num_digits(L)}, key limbs "
         f"{len(ctx.key_limbs(L))}; composite L={cctx.L} k={cctx.k_sp}")
     rng = np.random.default_rng(7)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     kern = {k: {"max_abs_err": 0} for k in REPLACES}
 
     def timed(name, fn, plain, iters, plain_iters):
@@ -219,13 +220,24 @@ def run() -> dict:
         check(torch.equal(got, want), f"{name} {what}: kernel != plain "
               f"(max abs err {err})")
 
-    # NTT pair: main-path shape, the key-switch shape, N=2048/65536, batched.
+    # NTT pair: the main-path shapes (the level [22,N], the key-switch
+    # [1,3,30,N], the special limbs [2,8,N] and the rescale's last limb
+    # [2,1,N], both read in place from [2,30,N] and [2,22,N]), batched, and
+    # N=2048/65536, each at every cluster size and the one cluster_for picks.
     t22 = ctx.tables(L)
     tkey = ctx.tables(ctx.key_limbs(L))
+    sp_idx = tuple(ctx.L + i for i in range(ctx.k_sp))
+    tsp = ctx.tables(sp_idx)
+    xs = residues(torch, rng, ctx.moduli[:L] + ctx.special, (2,), n,
+                  word_tensor)
+    x22b = residues(torch, rng, ctx.moduli[:L], (2,), n, word_tensor)
     cases = [("main [22,N]", residues(torch, rng, ctx.moduli[:L], (), n,
                                        word_tensor), t22),
              ("keyswitch [1,3,30,N]", residues(torch, rng, tkey.moduli, (1, 3),
                                                n, word_tensor), tkey),
+             ("specials [2,8,N] of [2,30,N]", xs[..., L:, :], tsp),
+             ("last limb [2,1,N] of [2,22,N]", x22b[..., -1:, :],
+              ctx.tables((L - 1,))),
              ("batched [2,3,22,N]", residues(torch, rng, ctx.moduli[:L], (2, 3), n,
                                              word_tensor), t22)]
     for logn in (11, 16):
@@ -236,29 +248,38 @@ def run() -> dict:
                       residues(torch, rng, mods, (2,), nn, word_tensor), tt))
     for what, x, t in cases:
         want = nttmod._ntt_stages(x, t)
-        same("ntt_fwd", tntt.ntt_forward(x, t), want, what)
-        same("ntt_inv", tntt.ntt_inverse(want, t), nttmod._intt_stages(want, t),
-             what)
-        same("ntt_inv", tntt.ntt_inverse(want, t), x, what + " roundtrip")
-        for s in (11, 13, 15):
-            if s <= t.logn:
-                same("ntt_fwd", tntt.ntt_forward(x, t, seg_log=s), want,
-                     f"{what} seg 2^{s}")
-                same("ntt_inv", tntt.ntt_inverse(want, t, seg_log=s), x,
-                     f"{what} seg 2^{s}")
+        want_i = nttmod._intt_stages(x, t)
+        for cl in (None, *tntt.cluster_sizes(t.logn)):
+            same("ntt_fwd", tntt.ntt_forward(x, t, cluster=cl), want,
+                 f"{what} cluster {cl}")
+            same("ntt_inv", tntt.ntt_inverse(x, t, cluster=cl), want_i,
+                 f"{what} cluster {cl}")
+            same("ntt_inv", tntt.ntt_inverse(want, t, cluster=cl),
+                 x.contiguous(), f"{what} cluster {cl} roundtrip")
     x = cases[0][1]
     fw = tntt.ntt_forward(x, t22)
+    xsp = cases[2][1]
     for name, fn, plain, arg in (
             ("ntt_fwd", tntt.ntt_forward, nttmod._ntt_stages, x),
             ("ntt_inv", tntt.ntt_inverse, nttmod._intt_stages, fw)):
         timed(name, lambda: fn(arg, t22), lambda: plain(arg, t22), 50, 5)
         kern[name]["bound_ms"], kern[name]["bound_by"] = bound(
             *ntt_cost(L, L, n))
+        kern[name]["cluster"] = tntt.cluster_for(ctx.logn, L, sms)
+        kern[name]["device_ms_by_cluster"] = {
+            f"{shape} C={cl}": profile_chain(
+                torch, lambda: fn(a, t, cluster=cl), 10)["device_ms"]
+            for shape, a, t in (("[22,N]", arg, t22), ("[2,8,N]", xsp, tsp))
+            for cl in tntt.cluster_sizes(ctx.logn)}
+        got = max(kernels_per_call(torch, lambda: fn(a, t))
+                  for a, t in ((arg, t22), (xsp, tsp), (cases[3][1],
+                                                        cases[3][2])))
+        check(got == 1, f"{name}: {got} device kernels per call, want 1")
+        kern[name]["kernels_per_call"] = got
 
     # Key switch at the relinearize shape (l=22, D=3, A=8, J=30), batched
     # M=2, at the size cluster_for picks and at every size the kernel takes;
     # then logN 11 and 16 at levels 5 (narrow last digit) and 4.
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     ft = ctx.fused_ks_tables(L)
     J = len(ctx.key_limbs(L))
     kdata = residues(torch, rng, tkey.moduli, (2, ft.D), n, word_tensor)
@@ -290,11 +311,10 @@ def run() -> dict:
     c = residues(torch, rng, ctx.moduli[:L], (), n, word_tensor)
     timed("keyswitch", lambda: tks.fused_switch_key(c, kdata, t22, tkey, ft),
           lambda: tks.switch_key_plain(c, kdata, t22, tkey, ft), 20, 3)
-    intt_launches = 1 + ctx.logn - tntt.seg_log_for(ctx.logn, L, sms)
     got = kernels_per_call(torch, lambda: tks.fused_switch_key(
         c, kdata, t22, tkey, ft))
-    check(got == intt_launches + 1, f"keyswitch: {got} device kernels per "
-          f"call, want the iNTT's {intt_launches} + 1")
+    check(got == 2, f"keyswitch: {got} device kernels per call, want the "
+          f"iNTT and ks_fused")
     kern["keyswitch"]["kernels_per_call"] = got
     kern["keyswitch"]["cluster"] = tks.cluster_for(ctx.logn, J, sms)
     kern["keyswitch"]["device_ms_by_cluster"] = {
@@ -312,11 +332,7 @@ def run() -> dict:
 
     # Mod-down: key-switch shape [2, 30, N] -> [2, 22, N], batched [3, 2],
     # the composite pair, each at every cluster size; then logN 11 and 16.
-    sp_idx = tuple(ctx.L + i for i in range(ctx.k_sp))
     fmd = ctx.fused_md_tables(L)
-    tsp = ctx.tables(sp_idx)
-    xs = residues(torch, rng, ctx.moduli[:L] + ctx.special, (2,), n,
-                  word_tensor)
     xb = residues(torch, rng, ctx.moduli[:L] + ctx.special, (3, 2), n,
                   word_tensor)
     cl_ = cctx.L
@@ -346,12 +362,10 @@ def run() -> dict:
                  f"{what} cluster {cl}")
     timed("moddown", lambda: tks.fused_mod_down(xs, tsp, t22, fmd),
           lambda: tks.mod_down_plain(xs, tsp, t22, fmd), 20, 3)
-    intt_launches = 1 + ctx.logn - tntt.seg_log_for(ctx.logn, 2 * ctx.k_sp,
-                                                    sms)
     got = kernels_per_call(torch, lambda: tks.fused_mod_down(xs, tsp, t22,
                                                              fmd))
-    check(got == 1 + intt_launches + 1, f"moddown: {got} device kernels per "
-          f"call, want the copy + the iNTT's {intt_launches} + 1")
+    check(got == 2, f"moddown: {got} device kernels per call, want the iNTT "
+          f"of the dropped limbs read in place and md_fused")
     kern["moddown"]["kernels_per_call"] = got
     kern["moddown"]["cluster"] = tks.cluster_for(ctx.logn, 2 * L, sms)
     kern["moddown"]["device_ms_by_cluster"] = {
@@ -371,7 +385,7 @@ def run() -> dict:
             f"(device {kern[name]['device_ms']:.4f} ms, plain "
             f"{kern[name]['plain_ms']:.3f} ms, bound "
             f"{kern[name]['bound_ms']:.4f} ms by {kern[name]['bound_by']})")
-    for name in CLUSTER_KERNELS:
+    for name in REPLACES:
         k = kern[name]
         log(f"  {name}: {k['kernels_per_call']} device kernels per call; "
             f"cluster {k['cluster']} picked; device ms by cluster size "
@@ -478,6 +492,14 @@ def run() -> dict:
     for name, kms, cnt in prof["top"]:
         log(f"  {kms:.4f} ms  x{cnt:.0f}  {name}")
     result["profile"] = prof
+    prof_rs = profile_chain(torch, lambda: ev.rescale(ev.multiply(ct, ct)),
+                            reps=10)
+    log(f"profile: ct-mult+relin+rescale device time "
+        f"{prof_rs['device_ms']:.3f} ms per op, "
+        f"{prof_rs['launches']:.0f} kernel launches per op")
+    for name, kms, cnt in prof_rs["top"]:
+        log(f"  {kms:.4f} ms  x{cnt:.0f}  {name}")
+    result["profile_rescale"] = prof_rs
 
     # -- 6. report ----------------------------------------------------------------
     rows = []

@@ -37,8 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # "l" 64-bit int.
 _ENTRIES = {
     "ntt": {
-        "ntt_forward": "ppppp" + "l" + "iii" + "p",
-        "ntt_inverse": "ppppppp" + "l" + "iii" + "p",
+        "ntt_forward": "ppppp" + "l" + "i" * 5 + "p",
+        "ntt_inverse": "ppppppp" + "l" + "i" * 5 + "p",
     },
     "keyswitch": {
         "ks_fused": "p" * 15 + "i" * 8 + "p",
@@ -143,13 +143,15 @@ def call(lib: str, fn: str, *args, cdll: ctypes.CDLL | None = None) -> None:
         raise RuntimeError(f"CUDA kernel {lib}.{fn} failed: error {rc}")
 
 
-def check_operand(x: torch.Tensor, name: str, shape=None) -> None:
-    """What every wrapper checks before it hands a pointer to a kernel."""
+def check_operand(x: torch.Tensor, name: str, shape=None,
+                  contiguous: bool = True) -> None:
+    """What every wrapper checks before it hands a pointer to a kernel;
+    ``contiguous=False`` leaves the layout to the caller."""
     if not x.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
     if x.dtype != torch.int32:
         raise TypeError(f"{name}: expected torch.int32, got {x.dtype}")
-    if not x.is_contiguous():
+    if contiguous and not x.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None and tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "

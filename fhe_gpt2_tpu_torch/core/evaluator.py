@@ -69,7 +69,7 @@ def _scales_close(a: float, b: float, tol=1e-6):
 def _drop_last_core(x, t_rem, t_last, dlt: DropLastTables):
     """Exact divide-and-round of NTT-form x[..., l, N] by its trailing limb:
     iNTT only the dropped limb (``evaluator._drop_last_core``)."""
-    last = nttmod.intt(x[..., -1:, :].contiguous(), t_last)[..., 0, :]
+    last = nttmod.intt(x[..., -1:, :], t_last)[..., 0, :]
     shifted = add_mod(last, dlt.half, dlt.q_last)
     img = reduce_mod(shifted[..., None, :], dlt.q)
     img = sub_mod(img, dlt.half_mod, dlt.q)
@@ -203,7 +203,7 @@ class Evaluator:
             "rescale at the chain floor: out of levels (bootstrap needed)")
         l = a.level
         if g == 1:
-            data = _drop_last_core(a.data, ctx.tables(l - 1),
+            data = _drop_last_core(a.data.contiguous(), ctx.tables(l - 1),
                                    ctx.tables((l - 1,)),
                                    ctx.drop_last_tables(l))
         else:

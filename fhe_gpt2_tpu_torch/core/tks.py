@@ -8,10 +8,11 @@ thread-block cluster per (batch, key limb) that forms each digit's
 base-converted limb, runs its NTT across the cluster's shared memory
 (``csrc/ntt_cluster.cuh``) and accumulates the key product in registers.
 ``fused_mod_down`` replaces the Pallas ``_md_kernel`` (convert → correct →
-NTT → subtract·P⁻¹); on the card it is a copy of the dropped limbs, their
-iNTT, and one launch of ``csrc/moddown.cu``, one cluster per (batch, output
-limb). Each source carries its note on what bounds it and what its design
-does. ``cluster_for`` picks the cluster size; ``cluster=`` forces it.
+NTT → subtract·P⁻¹); on the card it is the iNTT of the dropped limbs, read
+in place, and one launch of ``csrc/moddown.cu``, one cluster per (batch,
+output limb). Each source carries its note on what bounds it and what its
+design does. ``cluster_for`` (``core/tntt.py``) picks the cluster size;
+``cluster=`` forces it.
 
 Route: CUDA tensors launch the kernels (or the wrapper raises); CPU tensors
 run the plain versions below, which nothing on the card path calls:
@@ -31,71 +32,11 @@ from . import _cuda, rns
 from .modmath import sub_mod, mul_mod, mul_mod_shoup, mod_sum, shoup, \
     to_numpy_u32, word_tensor
 from .ntt import NttTables, _intt_stages, _ntt_stages
-from .tntt import _sms, ntt_inverse
-
-
-# ---------------------------------------------------------------------------
-# Cluster geometry (both kernels)
-# ---------------------------------------------------------------------------
-
-MAX_CLUSTER = 8            # portable thread-block cluster size
-CLUSTER_THREADS = 512      # most threads per CTA (the kernels' launch bound)
-CLUSTER_WORDS = 16         # most words per thread: the key switch keeps two
-                           # accumulators and the digit's words in registers
-
-
-def cluster_sizes(logn: int) -> tuple[int, ...]:
-    """The cluster sizes C the kernels take at N = 2^logn: powers of two
-    up to 8 whose N/C words fit CLUSTER_THREADS threads of at most
-    CLUSTER_WORDS words each (and so at most 32 KB of shared memory)."""
-    if not 2 <= logn <= 16:
-        raise ValueError(f"the cluster kernels cover logN 2..16, not {logn}")
-    n = 1 << logn
-    return tuple(c for c in (1, 2, 4, MAX_CLUSTER)
-                 if 4 <= n // c <= CLUSTER_THREADS * CLUSTER_WORDS)
-
-
-def cluster_threads(logn: int, c: int) -> int:
-    """Threads per CTA for N/C words: CLUSTER_THREADS, or N/(2C) (two words
-    per thread) for small limbs; N/C is always a multiple of it."""
-    return min(CLUSTER_THREADS, ((1 << logn) // c) // 2)
-
-
-def ctas_per_sm(words: int) -> int:
-    """CTAs of either cluster kernel that one SM holds at `words` words per
-    thread: the minimum of their ``__launch_bounds__``, which caps their
-    registers to fit (``cluster_ctas_per_sm`` in csrc/ntt_cluster.cuh)."""
-    return 2 if words <= 8 else 1
-
-
-def cluster_for(logn: int, clusters: int, sms: int) -> int:
-    """Cluster size for `clusters` independent limbs of N = 2^logn words on
-    `sms` SMs. Each thread's work is W = N/(C·threads) words: pick the C
-    that minimises waves x W, waves = ceil(clusters·C / (sms ·
-    ctas_per_sm(W))); ties go to the smaller C (fewer cluster barriers)."""
-    def cost(c):
-        w = (1 << logn) // c // cluster_threads(logn, c)
-        return -(-clusters * c // (sms * ctas_per_sm(w))) * w, c
-    return min(cluster_sizes(logn), key=cost)
-
-
-def _check_cluster(logn: int, cluster: int | None) -> None:
-    if cluster is not None and cluster not in cluster_sizes(logn):
-        raise ValueError(f"cluster {cluster} not in {cluster_sizes(logn)} "
-                         f"for logN={logn}")
-
-
-def _check_aligned(x: torch.Tensor, name: str) -> None:
-    # The kernels move each thread's words with 8- and 16-byte accesses.
-    if x.data_ptr() % 16:
-        raise ValueError(f"{name}: data must start on a 16-byte boundary")
-
-
-def _geometry(logn: int, clusters: int, x: torch.Tensor,
-              cluster: int | None) -> tuple[int, int]:
-    """(log2 C, threads per CTA) of one launch."""
-    c = cluster or cluster_for(logn, clusters, _sms(x.device))
-    return c.bit_length() - 1, cluster_threads(logn, c)
+# The cluster geometry lives with the NTT wrappers; its names stay
+# importable from here.
+from .tntt import CLUSTER_THREADS, CLUSTER_WORDS, MAX_CLUSTER, \
+    _check_aligned, _check_cluster, _geometry, _sms, cluster_for, \
+    cluster_sizes, cluster_threads, ctas_per_sm, ntt_inverse  # noqa: F401
 
 
 # ---------------------------------------------------------------------------
@@ -292,7 +233,7 @@ def fused_mod_down(x: torch.Tensor, t_sp: NttTables, t_q: NttTables,
     _cuda.check_operand(x, "x")
     _check_aligned(x, "x")
     log_c, threads = _geometry(t_q.logn, M * l, x, cluster)
-    a = ntt_inverse(x[..., l:, :].contiguous(), t_sp)
+    a = ntt_inverse(x[..., l:, :], t_sp)
     out = torch.empty((M, l, n), dtype=torch.int32, device=x.device)
     _cuda.call("moddown", "md_fused", *md_fused_args(a, x, t_q, ft, out,
                                                      log_c, threads))

@@ -1,6 +1,6 @@
-// Forward negacyclic NTT of one limb held across a thread-block cluster, and
-// the cluster launch, for Hopper (sm_90a). Used by keyswitch.cu and
-// moddown.cu.
+// Forward and inverse negacyclic NTT of one limb held across a thread-block
+// cluster, and the cluster launch, for Hopper (sm_90a). Used by ntt.cu,
+// keyswitch.cu and moddown.cu.
 //
 // A limb of N = 2^logn words is spread over the C = 2^log_c CTAs of one
 // cluster: CTA rank r holds words [r*S, (r+1)*S), S = N / C, in its shared
@@ -30,10 +30,16 @@
 // Shared memory is XOR-swizzled (word i lives at i ^ ((i >> 5) & 31)) so that
 // the strided accesses of the last groups spread over the 32 banks.
 //
+// The inverse (cluster_ntt_inv) runs the Gentleman-Sande network of
+// _intt_stages with the inv_roots tables in the mirrored order: spans
+// 1 .. W/2 on the thread's own words, the shared-memory groups in rising
+// span (the leftover stages last), then the radix-C pass.
+//
 // Rules the callers keep: every thread of every CTA of a cluster reaches
 // every cluster.sync() (no early return, also for a thread that has no
-// column in the radix-C pass), and every CTA ends with a cluster.sync() so
-// that no CTA exits while a peer may still touch its shared memory.
+// column in the radix-C pass), and every CTA ends with a cluster.sync()
+// after its last DSMEM access, so that no CTA exits while a peer may still
+// touch its shared memory (cluster_ntt_inv ends with that one itself).
 #pragma once
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -44,11 +50,11 @@ namespace cg = cooperative_groups;
 
 constexpr int kClusterThreads = 512;   // most threads per CTA (__launch_bounds__)
 
-// CTAs of kClusterThreads threads that both cluster kernels keep on one SM
+// CTAs of kClusterThreads threads that the cluster kernels keep on one SM
 // at W words per thread; it is their __launch_bounds__ minimum, so the
 // compiler holds them to 64 registers a thread at W <= 8 (left free, the
 // key switch's radix-8 DSMEM pass takes 117 and one CTA per SM). Shared
-// memory (4W bytes a thread) never binds first. core/tks.py ctas_per_sm
+// memory (4W bytes a thread) never binds first. core/tntt.py ctas_per_sm
 // states the same numbers for cluster_for; tests/test_torch_geometry.py
 // holds the two equal.
 __host__ __device__ constexpr int cluster_ctas_per_sm(int W) { return W <= 8 ? 2 : 1; }
@@ -114,9 +120,36 @@ __device__ __forceinline__ void radix_fwd(uint32_t (&x)[1 << G], int g0, int a, 
   }
 }
 
+// The inverse of radix_fwd's stages: the same sub-network and twiddle
+// index, Gentleman-Sande butterflies (u, v) -> (u + v, (u - v) * w) in
+// rising span 2^a .. 2^(a+G-1), with rt / rts the inv_roots tables.
+template <int G>
+__device__ __forceinline__ void radix_inv(uint32_t (&x)[1 << G], int g0, int a, int logn,
+                                          const uint32_t* __restrict__ rt,
+                                          const uint32_t* __restrict__ rts, uint32_t q) {
+#pragma unroll
+  for (int t = 0; t < G; ++t) {
+    const int hs = a + t;
+    const int tw0 = (1 << (logn - 1 - hs)) + (g0 >> (hs + 1));
+#pragma unroll
+    for (int blk = 0; blk < (1 << (G - 1 - t)); ++blk) {
+      const uint32_t w = __ldg(rt + tw0 + blk), ws = __ldg(rts + tw0 + blk);
+#pragma unroll
+      for (int b = 0; b < (1 << t); ++b) {
+        const int m = (blk << (t + 1)) + b;
+        const uint32_t u = x[m];
+        const uint32_t v = x[m + (1 << t)];
+        x[m] = add_mod(u, v, q);
+        x[m + (1 << t)] = mul_shoup(sub_mod(u, v, q), w, ws, q);
+      }
+    }
+  }
+}
+
 // One group of G local stages (spans 2^(a+G-1) .. 2^a) over the CTA's S
-// words in shared memory; thread tid runs sub-networks tid + v*T.
-template <int G, int W>
+// words in shared memory; thread tid runs sub-networks tid + v*T. Inv runs
+// radix_inv instead of radix_fwd.
+template <int G, int W, bool Inv = false>
 __device__ __forceinline__ void smem_group(uint32_t* sh, int a, int rank_s, int logn,
                                            const uint32_t* __restrict__ rt,
                                            const uint32_t* __restrict__ rts, uint32_t q) {
@@ -129,7 +162,10 @@ __device__ __forceinline__ void smem_group(uint32_t* sh, int a, int rank_s, int 
     uint32_t x[R];
 #pragma unroll
     for (int m = 0; m < R; ++m) x[m] = sh[swz(base + (m << a))];
-    radix_fwd<G>(x, rank_s + base, a, logn, rt, rts, q);
+    if constexpr (Inv)
+      radix_inv<G>(x, rank_s + base, a, logn, rt, rts, q);
+    else
+      radix_fwd<G>(x, rank_s + base, a, logn, rt, rts, q);
 #pragma unroll
     for (int m = 0; m < R; ++m) sh[swz(base + (m << a))] = x[m];
   }
@@ -181,6 +217,54 @@ __device__ __forceinline__ void cluster_ntt_fwd(uint32_t* sh, uint32_t (&x)[W], 
 #pragma unroll
   for (int m = 0; m < W; ++m) x[m] = sh[swz(tid * W + m)];
   radix_fwd<G>(x, rank_s + tid * W, 0, logn, rt, rts, q);
+}
+
+// x holds this thread's W words of the limb; on return it holds the same
+// words of the limb's inverse NTT before the N^-1 scaling, which the caller
+// applies. Uses sh (S words); ends with a cluster.sync() after its DSMEM
+// pass. LC is log2 of the cluster size; rt / rts are the inv_roots tables.
+template <int W, int LC>
+__device__ __forceinline__ void cluster_ntt_inv(uint32_t* sh, uint32_t (&x)[W], int logn,
+                                                const uint32_t* __restrict__ rt,
+                                                const uint32_t* __restrict__ rts, uint32_t q) {
+  constexpr int G = log2_words<W>();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int T = blockDim.x;
+  const int S = T * W;
+  const int tid = threadIdx.x;
+  const int rank_s = rank * S;
+  const int log_s = logn - LC;
+  radix_inv<G>(x, rank_s + tid * W, 0, logn, rt, rts, q);
+#pragma unroll
+  for (int m = 0; m < W; ++m) sh[swz(tid * W + m)] = x[m];
+  __syncthreads();
+  int a = G;                                  // spans 2^a .. 2^(log_s-1) remain
+  for (; a + G <= log_s; a += G) smem_group<G, W, true>(sh, a, rank_s, logn, rt, rts, q);
+  if constexpr (G > 1) {
+    switch (log_s - a) {
+      case 1: smem_group<1, W, true>(sh, a, rank_s, logn, rt, rts, q); break;
+      case 2: if constexpr (G > 2) smem_group<2, W, true>(sh, a, rank_s, logn, rt, rts, q); break;
+      case 3: if constexpr (G > 3) smem_group<3, W, true>(sh, a, rank_s, logn, rt, rts, q); break;
+    }
+  }
+  if constexpr (LC > 0) {
+    // Column o holds word r*S + o of every CTA r (see cluster_ntt_fwd).
+    cluster.sync();
+    const int cols = S >> LC;
+    for (int o = rank * cols + tid; o < (rank + 1) * cols; o += T) {
+      uint32_t v[1 << LC];
+      const int so = swz(o);
+#pragma unroll
+      for (int r = 0; r < (1 << LC); ++r) v[r] = cluster.map_shared_rank(sh, r)[so];
+      radix_inv<LC>(v, o, log_s, logn, rt, rts, q);
+#pragma unroll
+      for (int r = 0; r < (1 << LC); ++r) cluster.map_shared_rank(sh, r)[so] = v[r];
+    }
+    cluster.sync();
+  }
+#pragma unroll
+  for (int m = 0; m < W; ++m) x[m] = sh[swz(tid * W + m)];
 }
 
 // Launches kernel on clusters * 2^log_c CTAs of `threads` threads in

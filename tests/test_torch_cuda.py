@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from fhe_gpt2_tpu_torch.core import ntt as nttmod
-from fhe_gpt2_tpu_torch.core import primes, tks, tntt
+from fhe_gpt2_tpu_torch.core import _cuda, primes, tks, tntt
 from fhe_gpt2_tpu_torch.core.context import CkksContext, CkksParams
 from fhe_gpt2_tpu_torch.core.evaluator import Decryptor, Encryptor, Evaluator
 from fhe_gpt2_tpu_torch.core.keys import KeyGenerator
@@ -38,21 +38,78 @@ def _residues(rng, moduli, lead, n, device):
     return word_tensor(x, device)
 
 
-@pytest.mark.parametrize("logn", [11, 15, 16])
-def test_ntt_kernels_equal_plain(cuda, logn):
-    """Forward and inverse over every segment size, which moves the split
-    between global-memory stages and shared-memory stages."""
-    n = 1 << logn
-    mods = primes.gen_primes_balanced(25, 3, 2 * n)
-    t = nttmod.make_ntt_tables(mods, n, cuda)
-    x = _residues(np.random.default_rng(logn), mods, (2,), n, cuda)
+def _forced(logns):
+    """(logN, C) for every cluster size the kernels take at each logN, and
+    C = None (the size ``cluster_for`` picks)."""
+    return [(lg, c) for lg in logns for c in (None, *tntt.cluster_sizes(lg))]
+
+
+_NTT_TABLES = {}
+
+
+def _ntt_tables(cuda, logn, limbs=42):
+    """NTT tables of `limbs` 25-bit primes at N = 2^logn, made once."""
+    if logn not in _NTT_TABLES:
+        n = 1 << logn
+        _NTT_TABLES[logn] = nttmod.make_ntt_tables(
+            primes.gen_primes_balanced(25, limbs, 2 * n), n, cuda)
+    return _NTT_TABLES[logn]
+
+
+# Row counts of the main path: one limb (the rescale's last limb), the
+# composite pair, the special limbs [2, 8], the level [22], the rescale's
+# [2, 21] as 42 rows; and batched leads.
+@pytest.mark.parametrize("logn,cluster", _forced((11, 15, 16)))
+@pytest.mark.parametrize("lead,limbs", [((), 1), ((), 2), ((), 16), ((), 22),
+                                        ((), 42), ((2,), 8), ((2, 3), 4)])
+def test_ntt_kernels_equal_plain(cuda, logn, cluster, lead, limbs):
+    """Forward and inverse at every cluster size, one launch each."""
+    t = _ntt_tables(cuda, logn).slice(list(range(limbs)))
+    x = _residues(np.random.default_rng(logn + limbs), t.moduli, lead,
+                  t.n, cuda)
     want = nttmod._ntt_stages(x, t)
     assert torch.equal(nttmod._intt_stages(want, t), x)
-    for s in range(1, min(logn, tntt.MAX_SEG_LOG) + 1):
-        assert torch.equal(tntt.ntt_forward(x, t, seg_log=s), want), s
-        assert torch.equal(tntt.ntt_inverse(want, t, seg_log=s), x), s
-    assert torch.equal(nttmod.ntt(x, t), want)
-    assert torch.equal(nttmod.intt(want, t), x)
+    before = dict(_cuda.LAUNCHES)
+    assert torch.equal(tntt.ntt_forward(x, t, cluster=cluster), want)
+    assert torch.equal(tntt.ntt_inverse(want, t, cluster=cluster), x)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["ntt_fwd"] == before["ntt_fwd"] + 1
+    assert _cuda.LAUNCHES["ntt_inv"] == before["ntt_inv"] + 1
+    if cluster is None:
+        assert torch.equal(nttmod.ntt(x, t), want)
+        assert torch.equal(nttmod.intt(want, t), x)
+
+
+@pytest.mark.parametrize("logn,cluster", _forced((11, 15, 16)))
+@pytest.mark.parametrize("lead,a,limbs", [((2,), 6, 2), ((2,), 7, 1),
+                                          ((3, 2), 0, 3), ((2, 1), 5, 3)])
+def test_ntt_kernels_read_limb_slices_in_place(cuda, logn, cluster, lead, a,
+                                               limbs):
+    """The limbs [a, a+L) of a contiguous [..., 8, N] tensor, passed as a
+    view, give what the contiguous copy gives."""
+    full_t = _ntt_tables(cuda, logn)
+    full = _residues(np.random.default_rng(a), full_t.moduli[:8], lead,
+                     full_t.n, cuda)
+    xs = full[..., a:a + limbs, :]
+    assert not xs.is_contiguous()
+    t = full_t.slice(list(range(a, a + limbs)))
+    got_f = tntt.ntt_forward(xs, t, cluster=cluster)
+    got_i = tntt.ntt_inverse(xs, t, cluster=cluster)
+    assert got_f.is_contiguous() and got_f.shape == xs.shape
+    assert torch.equal(got_f, nttmod._ntt_stages(xs.contiguous(), t))
+    assert torch.equal(got_i, nttmod._intt_stages(xs.contiguous(), t))
+
+
+def test_ntt_wrappers_refuse_other_layouts(cuda):
+    """A non-contiguous operand that is no limb slice raises."""
+    t = _ntt_tables(cuda, 11).slice([0, 1])
+    rng = np.random.default_rng(0)
+    x = _residues(rng, t.moduli, (2,), t.n, cuda)
+    y = _residues(rng, t.moduli, (3, 2), t.n, cuda)
+    for bad in (x.transpose(0, 1), y.transpose(0, 1), x[:1].expand(3, 2, t.n)):
+        for fn in (tntt.ntt_forward, tntt.ntt_inverse):
+            with pytest.raises(ValueError):
+                fn(bad, t)
 
 
 def _ctx(cuda, composite, logn=12):
@@ -72,12 +129,6 @@ def _cached_ctx(cuda, composite, logn):
     if (composite, logn) not in _CTX:
         _CTX[composite, logn] = _ctx(cuda, composite, logn)
     return _CTX[composite, logn]
-
-
-def _forced(logns):
-    """(logN, C) for every cluster size the kernels take at each logN, and
-    C = None (the size ``cluster_for`` picks)."""
-    return [(lg, c) for lg in logns for c in (None, *tks.cluster_sizes(lg))]
 
 
 # Levels 1, 3 and 5 end in a narrow digit (alpha = 2); 2 and 4 do not.
@@ -120,8 +171,9 @@ def test_moddown_kernel_equals_plain(cuda, logn, cluster, composite, pair,
 
 
 def test_wrappers_launch_one_kernel_after_the_intt(cuda):
-    """One fused_switch_key call is the iNTT's launches plus one kernel; one
-    fused_mod_down call is a copy, the iNTT's launches and one kernel."""
+    """One NTT or iNTT call is one device kernel; one fused_switch_key call
+    is the iNTT and one kernel, and so is one fused_mod_down call (its
+    dropped limbs are read in place, with no copy)."""
     from torch.profiler import ProfilerActivity, profile
     ctx = _cached_ctx(cuda, False, 15)
     level = ctx.L
@@ -133,16 +185,14 @@ def test_wrappers_launch_one_kernel_after_the_intt(cuda):
     sp = ctx.tables(tuple(ctx.L + i for i in range(ctx.k_sp)))
     x = _residues(rng, ctx.moduli[:level] + ctx.special, (2,), ctx.n, cuda)
     fmd = ctx.fused_md_tables(level)
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-
-    def intt_launches(rows):
-        return 1 + ctx.logn - tntt.seg_log_for(ctx.logn, rows, sms)
-
+    last = ctx.tables((level - 1,))
     for fn, want in (
-            (lambda: tks.fused_switch_key(c, kdata, lt, kt, ft),
-             intt_launches(level) + 1),
-            (lambda: tks.fused_mod_down(x, sp, ctx.tables(level), fmd),
-             1 + intt_launches(2 * ctx.k_sp) + 1)):
+            (lambda: tntt.ntt_forward(c, lt), 1),
+            (lambda: tntt.ntt_inverse(c, lt), 1),
+            (lambda: tntt.ntt_inverse(x[..., level:, :], sp), 1),
+            (lambda: tntt.ntt_inverse(c[..., -1:, :], last), 1),
+            (lambda: tks.fused_switch_key(c, kdata, lt, kt, ft), 2),
+            (lambda: tks.fused_mod_down(x, sp, ctx.tables(level), fmd), 2)):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:

@@ -72,7 +72,7 @@ def test_ctas_per_sm_matches_the_kernels_launch_bound(words):
     assert tks.ctas_per_sm(words) * tks.CLUSTER_THREADS <= 2048
 
 
-@pytest.mark.parametrize("source", ["keyswitch.cu", "moddown.cu"])
+@pytest.mark.parametrize("source", ["ntt.cu", "keyswitch.cu", "moddown.cu"])
 def test_cluster_kernels_take_the_shared_launch_bound(source):
     src = (_CSRC / source).read_text()
     assert re.search(r"__launch_bounds__\(kClusterThreads, "

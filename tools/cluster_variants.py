@@ -1,24 +1,28 @@
 #!/usr/bin/env python3
-"""Time variants of the cluster key-switch and mod-down kernels on one card.
+"""Time variants of the cluster kernels (NTT, key switch, mod-down) on one card.
 
     python3 tools/cluster_variants.py
 
 Each variant is a set of text substitutions applied to a copy of
 ``fhe_gpt2_tpu_torch/csrc`` (``base`` is the sources as they are; ``noNTT``
-skips the cluster NTT, so it times the base conversion, the key product and
-the memory traffic alone; ``gather0`` has the key switch's conversion read
-one source limb for every term, which L1 holds; ``nokey`` skips its key
-loads). Every substitution must match the sources, or the tool stops: a
-variant never silently equals ``base``. Every variant is built with nvcc
-(``-Xptxas -v``, whose register counts are printed) into
-``build/variants/<name>/``, and its ``ks_fused`` / ``md_fused`` entries are
-called with the wrappers' own argument lists (``tks.ks_fused_args`` /
+skips the cluster NTT and iNTT, so it times the loads, the stores, the
+kernel's other arithmetic and its closing barrier alone; ``notw`` takes
+every twiddle of the cluster NTT and iNTT from one table word, so the
+twiddle loads leave and the barriers stay; ``gather0`` has the key switch's
+conversion read one source limb for every term, which L1 holds; ``nokey``
+skips its key loads). Every substitution must match the sources, or the
+tool stops: a variant never silently equals ``base``. Every variant is
+built with nvcc (``-Xptxas -v``, whose register counts are printed) into
+``build/variants/<name>/``, and its C entries are called with the wrappers'
+own argument lists (``tntt.ntt_args``, ``tks.ks_fused_args`` /
 ``md_fused_args``) at the main-path shapes (logN=15, level 22, alpha=8: the
-key switch of one ciphertext limb set to J=30 key limbs; the mod-down of
-[2, 30, N] to [2, 22, N]) at every cluster size the kernels take. Times are
-device microseconds per call from CUDA events over 30 calls queued behind a
-sleep kernel, so host launch gaps do not count. ``base`` must equal the
-plain version (``torch.equal``); the other variants print whether they do.
+forward and inverse NTT of [22, N] and of the special limbs [2, 8, N] read
+in place from [2, 30, N]; the key switch of one ciphertext limb set to J=30
+key limbs; the mod-down of [2, 30, N] to [2, 22, N]) at every cluster size
+the kernels take. Times are device microseconds per call from CUDA events
+over 30 calls queued behind a sleep kernel, so host launch gaps do not
+count. ``base`` must equal the plain version (``torch.equal``); the other
+variants print whether they do.
 """
 import re
 import subprocess
@@ -33,13 +37,17 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from fhe_gpt2_tpu_torch.core import _cuda, tks, tntt  # noqa: E402
+from fhe_gpt2_tpu_torch.core import ntt as nttmod  # noqa: E402
 from fhe_gpt2_tpu_torch.core.context import CkksContext, CkksParams  # noqa: E402
 from fhe_gpt2_tpu_torch.core.modmath import word_tensor  # noqa: E402
 
 OUT = ROOT / "build" / "variants"
 VARIANTS = {
     "base": [],
-    "noNTT": [("cluster_ntt_fwd<W, LC>(", "if (0) cluster_ntt_fwd<W, LC>(")],
+    "noNTT": [("cluster_ntt_fwd<W, LC>(", "if (0) cluster_ntt_fwd<W, LC>("),
+              ("cluster_ntt_inv<W, LC>(", "if (0) cluster_ntt_inv<W, LC>(")],
+    "notw": [("__ldg(rt + tw0 + blk), ws = __ldg(rts + tw0 + blk);",
+              "__ldg(rt + 1), ws = __ldg(rts + 1);")],
     "gather0": [("(long long)gather[d * A + a] * n, y);", "0 * n, y);")],
     "nokey": [("load_words<W>(kp, y);", ""),
               ("load_words<W>(kp + key_c, y);", "")],
@@ -61,7 +69,7 @@ def build() -> dict[str, dict]:
                 texts[name] = texts[name].replace(a, b)
         for name, s in texts.items():
             (d / name).write_text(s)
-        for name in ("keyswitch", "moddown"):
+        for name in _cuda.SOURCES:
             cmd = _cuda.nvcc_command(d / f"{name}.cu", d / f"lib{name}.so")
             procs.append((v, name, subprocess.Popen(
                 [*cmd, "-Xptxas", "-v"], stdout=subprocess.PIPE,
@@ -71,11 +79,12 @@ def build() -> dict[str, dict]:
         out, _ = p.communicate()
         if p.returncode:
             raise SystemExit(out[-3000:])
-        regs = re.findall(r"ILi(\d+)ELi(\d+)E.*?\n.*?(\d+) bytes stack.*?\n"
-                          r".*?Used (\d+) registers", out, re.S)
+        regs = re.findall(r"\d([a-z_]+)_kernelILi(\d+)ELi(\d+)E.*?\n.*?"
+                          r"(\d+) bytes stack.*?\n.*?Used (\d+) registers",
+                          out, re.S)
         print(f"build {v}/{name}: registers (stack bytes) "
-              + " ".join(f"W={w},C={1 << int(lc)}: {r} ({s})"
-                         for w, lc, s, r in sorted(regs)), flush=True)
+              + " ".join(f"{k} W={w},C={1 << int(lc)}: {r} ({s})"
+                         for k, w, lc, s, r in sorted(regs)), flush=True)
         libs[v][name] = _cuda.load(OUT / v / f"lib{name}.so", name)
     return libs
 
@@ -119,8 +128,14 @@ def main() -> None:
     fmd = ctx.fused_md_tables(L)
     tsp = ctx.tables(tuple(ctx.L + i for i in range(ctx.k_sp)))
     xs = res(ctx.moduli[:L] + ctx.special, (2,))
-    a = tntt.ntt_inverse(xs[..., L:, :].contiguous(), tsp)
+    a = tntt.ntt_inverse(xs[..., L:, :], tsp)
     mwant = tks.mod_down_plain(xs, tsp, lt, fmd)
+    # (name, operand, tables, inverse, plain result)
+    ntts = [(f"{d} {shape}", x, t, inv,
+             (nttmod._intt_stages if inv else nttmod._ntt_stages)(x, t))
+            for shape, x, t in (("[22,N]", c, lt),
+                                ("[2,8,N]", xs[..., L:, :], tsp))
+            for d, inv in (("ntt", False), ("intt", True))]
 
     for v in VARIANTS:
         for C in tks.cluster_sizes(ctx.logn):
@@ -135,10 +150,21 @@ def main() -> None:
                 "moddown", "md_fused", *md_args, cdll=libs[v]["moddown"]))
             eq_ks = torch.equal(out.reshape(want.shape), want)
             eq_md = torch.equal(mout, mwant)
-            print(f"{v:7s} C={C} T={T} W={n // C // T}: key switch {t_ks:.1f} us "
-                  f"(equal {eq_ks}), mod-down {t_md:.1f} us (equal {eq_md})",
+            line = [f"key switch {t_ks:.1f} us (equal {eq_ks})",
+                    f"mod-down {t_md:.1f} us (equal {eq_md})"]
+            equal = eq_ks and eq_md
+            for what, x, t, inv, nwant in ntts:
+                nout = torch.empty(x.shape, dtype=torch.int32, device="cuda")
+                args = tntt.ntt_args(x, t, nout, inv, lc, T)
+                entry = "ntt_inverse" if inv else "ntt_forward"
+                t_n = device_us(lambda: _cuda.call("ntt", entry, *args,
+                                                   cdll=libs[v]["ntt"]))
+                eq = torch.equal(nout, nwant)
+                equal = equal and eq
+                line.append(f"{what} {t_n:.1f} us (equal {eq})")
+            print(f"{v:7s} C={C} T={T} W={n // C // T}: " + ", ".join(line),
                   flush=True)
-            if v == "base" and not (eq_ks and eq_md):
+            if v == "base" and not equal:
                 raise SystemExit("cluster_variants: base differs from plain")
 
 
