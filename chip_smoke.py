@@ -29,7 +29,28 @@ Phases (any failed check exits non-zero and prints no result):
              time, kernel launches and top kernels of one ct-mult+relin and
              of one mult+relin+rescale from torch.profiler, and the device's
              idle share;
-  6. report  one JSON line of kernels, the card's name and power limit, and
+  6. bootstrap  the composite chain of `bench.py --metric bootstrap
+             --composite` (logN=15, 22 level pairs = 46 limbs, alpha=8
+             special primes, h=192, 8192 sparse slots; EvalMod K=25, degree
+             59 from the port's cache; CtS and StC in 2 factors each) through
+             CkksBackend -> Bootstrapper -> galois_keys(required_steps) ->
+             bootstrap: one ciphertext of uniform(-1, 1) slots at the base
+             level, decrypted (mean abs error < 1e-3, output level >= base +
+             2 pairs), every kernel launched (counts zeroed just before and
+             read just after); ModRaise, one hoisted_rotations_ext set (the
+             first CtS plan's baby steps) and one rotate_hoisted set on the
+             card torch.equal to the same calls on a CPU copy of the context
+             and keys (the plain route); every kernel torch.equal to its
+             plain version at each distinct shape the bootstrap gives it
+             (among them the key switch at 46 limbs / 6 digits / 54 key
+             limbs, the stacked key switches of EvalMod and the stacked
+             pair rescale);
+             then seconds per bootstrap by CUDA
+             events (one warm-up, median of 3), wall and device ms per
+             stage, device ms, kernels, top kernels and idle share from
+             torch.profiler, launches of each kernel per bootstrap and peak
+             memory;
+  7. report  one JSON line of kernels, the card's name and power limit, and
              the last line {"ok": true, "device": {...}}.
 
 It imports the port only, never jax or fhe_gpt2_tpu. Without a CUDA device,
@@ -58,6 +79,9 @@ ERR_BOUND_COMPOSITE = 1e-6  # at scale 2^50 (phase 4)
 NUM_LEVELS = 22           # scale primes; bench.py encrypts at this many limbs
 REQUESTS = 4              # phase 3: the last one encrypts by public key
 ITERS = 20                # phase 5: length of the dependent chain
+BOOT_SLOTS = 8192         # phase 6: sparse slots (bench.py's bootstrap)
+ERR_BOUND_BOOT = 1e-3     # phase 6: mean abs error after bootstrap (the
+                          # production bound of test_bootstrap_production.py)
 
 REPLACES = {
     "ntt_fwd": "fhe_gpt2_tpu/core/tntt.py:250",
@@ -501,18 +525,249 @@ def run() -> dict:
         log(f"  {kms:.4f} ms  x{cnt:.0f}  {name}")
     result["profile_rescale"] = prof_rs
 
-    # -- 6. report ----------------------------------------------------------------
+    # -- 6. bootstrap --------------------------------------------------------------
+    result["phases"]["bootstrap"] = boot = bootstrap_phase(torch, timer, same)
+    for name in REPLACES:
+        kern[name]["launches_per_bootstrap"] = boot["launches"][name]
+
+    # -- 7. report ----------------------------------------------------------------
     rows = []
     for name in REPLACES:
         k = kern[name]
         rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name], "launches": k["launches"],
+                     "launches_per_bootstrap": k["launches_per_bootstrap"],
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": None,
                      "device_ms": k["device_ms"]})
     result["kernels"] = rows
     return result
+
+
+def hold_path_to_plain(run, same) -> dict:
+    """Call run() once with the four kernel wrappers replaced, wherever the
+    port's modules hold them, by recorders: the first call of each distinct
+    operand shape, layout and table set is also computed by the wrapper's
+    plain version on the same inputs and held to it with same(name, got,
+    want, what). Returns {kernel: [signature, ...]} of the shapes held; a
+    signature is (operand shape, operand strides, key shape or None, the
+    number of limbs divided out or None)."""
+    from fhe_gpt2_tpu_torch.core import ntt as nttmod, tks, tntt
+
+    def ntt_sig(x, t):
+        return (tuple(x.shape), x.stride(), None, None), id(t)
+
+    def ks_sig(c, kdata, lt, kt, ft):
+        return (tuple(c.shape), c.stride(), tuple(kdata.shape), None), id(ft)
+
+    def md_sig(x, t_sp, t_q, ft):
+        return (tuple(x.shape), x.stride(), None, ft.k), id(ft)
+
+    wrappers = {"ntt_fwd": (tntt.ntt_forward, nttmod._ntt_stages, ntt_sig),
+                "ntt_inv": (tntt.ntt_inverse, nttmod._intt_stages, ntt_sig),
+                "keyswitch": (tks.fused_switch_key, tks.switch_key_plain,
+                              ks_sig),
+                "moddown": (tks.fused_mod_down, tks.mod_down_plain, md_sig)}
+    held: dict = {name: {} for name in wrappers}
+
+    def recorder(name, wrapper, plain, sig):
+        def call(*args, **kw):
+            out = wrapper(*args, **kw)
+            s, tables = sig(*args)
+            if (s, tables) not in held[name]:
+                held[name][s, tables] = s
+                same(name, out, plain(*args), f"bootstrap path {s[:3]}")
+            return out
+        return call
+
+    mods = [m for k, m in list(sys.modules.items())
+            if k.startswith("fhe_gpt2_tpu_torch") and m is not None]
+    patched = []
+    for name, (wrapper, plain, sig) in wrappers.items():
+        rec = recorder(name, wrapper, plain, sig)
+        for m in mods:
+            for attr, v in list(vars(m).items()):
+                if v is wrapper:
+                    setattr(m, attr, rec)
+                    patched.append((m, attr, wrapper))
+    try:
+        run()
+    finally:
+        for m, attr, wrapper in patched:
+            setattr(m, attr, wrapper)
+    return {name: list(h.values()) for name, h in held.items()}
+
+
+def bootstrap_phase(torch, timer, same) -> dict:
+    """Phase 6: the bootstrap path at bench.py's composite bootstrap shape."""
+    from fhe_gpt2_tpu_torch.boot.bootstrap import Bootstrapper, \
+        evalmod_cache_path, make_evalmod, mod_raise
+    from fhe_gpt2_tpu_torch.core import _cuda
+    from fhe_gpt2_tpu_torch.core.context import CkksContext, CkksParams
+    from fhe_gpt2_tpu_torch.core.evaluator import Ciphertext, Decryptor, \
+        Encryptor, Evaluator
+    from fhe_gpt2_tpu_torch.core.keys import GaloisKeys, KeyGenerator, \
+        KSwitchKey
+    from fhe_gpt2_tpu_torch.nn.backend import CkksBackend
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = CkksParams.create_composite(
+        logn=15, num_levels=NUM_LEVELS, log_scale=50, log_q0=55,
+        log_special=31, num_special=8, hamming_weight=192,
+        sparse_slots=BOOT_SLOTS)
+    ctx = CkksContext(params)
+    kg = KeyGenerator(ctx, seed=1)
+    ev = Evaluator(ctx, relin_key=kg.relin_key())
+    enc = Encryptor(ctx, secret=kg.secret, seed=2)
+    dec = Decryptor(ctx, kg.secret)
+    # No decryptor on the backend: nothing can fall back to a decrypt/
+    # re-encrypt refresh.
+    B = CkksBackend(ctx=ctx, ev=ev, enc=enc, dec=None, default_level=ctx.L)
+    eps = params.scale / ctx.q0_float
+    em_kw = dict(K=25, eps=max(eps * 1.05, 2 ** -5), degree=59,
+                 arcsin_degree=3, prec_dps=80)
+    cache = evalmod_cache_path(num_double=2, **em_kw)
+    check(Path(cache).exists(), f"EvalMod coefficients missing: {cache}")
+    boot = Bootstrapper(B, num_slots=BOOT_SLOTS, evalmod=make_evalmod(**em_kw))
+    plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    steps = boot.required_steps()
+    ev.galois_keys = kg.galois_keys(steps, conjugate=True)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    log(f"bootstrap: logN=15, {ctx.L} limbs (base {ctx.base_limbs}), "
+        f"k={ctx.k_sp}, {ctx.num_digits(ctx.L)} digits, {BOOT_SLOTS} slots; "
+        f"build+plan {plan_s:.1f} s, keygen {keygen_s:.1f} s "
+        f"({len(ev.galois_keys.keys)} Galois keys incl. conjugation)")
+
+    z = np.random.default_rng(11).uniform(-1, 1, BOOT_SLOTS)
+    ct = enc.encrypt(ev.make_plain(z, params.scale, ctx.base_limbs))
+    # The counted run: launch counts zeroed just before, read just after.
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    out = boot.bootstrap(ct)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first_launches = dict(_cuda.LAUNCHES)
+    back = np.real(dec.decrypt(out, num_slots=BOOT_SLOTS))
+    check(back.shape == z.shape and np.isfinite(back).all(),
+          "bootstrap: bad output")
+    err = np.abs(back - z)
+    log(f"bootstrap: level {ct.level} -> {out.level}, mean abs err "
+        f"{err.mean():.3e} (bound {ERR_BOUND_BOOT}), max {err.max():.3e}; "
+        f"first run {first_s:.2f} s (mask encoding included); launches "
+        f"{first_launches}")
+    check(err.mean() < ERR_BOUND_BOOT, f"bootstrap mean error {err.mean()}")
+    check(out.level >= ctx.base_limbs + 2 * ctx.rescale_limbs,
+          f"bootstrap output level {out.level}")
+    for name in REPLACES:
+        check(first_launches[name] > 0,
+              f"kernel {name} not launched by the bootstrap")
+
+    # The card against the plain route: ModRaise, one hoisted_rotations_ext
+    # set (the first CtS plan's baby steps) and one rotate_hoisted set, on
+    # a CPU copy of the context and keys.
+    t0 = time.perf_counter()
+    babies = list(boot.cts_plans[0].baby_amounts)
+    cctx = CkksContext(params, device="cpu")
+    cev = Evaluator(cctx, galois_keys=GaloisKeys(keys={
+        e: KSwitchKey(data=k.data.cpu()) for e, k in ev.galois_keys.keys.items()
+        if e in {ctx.galois_elt_from_step(s) for s in babies if s}}))
+    base = boot._normalize_entry(ct)
+    raised = mod_raise(ctx, base)
+    check(torch.equal(raised.data.cpu(), mod_raise(
+        cctx, Ciphertext(base.data.cpu(), base.scale)).data),
+        "ModRaise on the card != the CPU route")
+    [x] = dict(boot.stages())["prep"]([base])
+    xc = Ciphertext(x.data.cpu(), x.scale)
+    for what, fn in (
+            ("hoisted_rotations_ext",
+             lambda e, c: e.hoisted_rotations_ext(c, babies)),
+            ("rotate_hoisted",
+             lambda e, c: [v.data for v in e.rotate_hoisted(c, babies)])):
+        got, want = fn(ev, x), fn(cev, xc)
+        check(len(got) == len(want) and all(
+            torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+            f"{what} on the card != the CPU route")
+    equal_s = time.perf_counter() - t0
+    log(f"bootstrap: ModRaise [2,{ctx.L},N], hoisted_rotations_ext and "
+        f"rotate_hoisted (steps {babies}) at level {x.level} torch.equal to "
+        f"the CPU route ({equal_s:.1f} s)")
+    del cctx, cev, xc
+
+    # Every kernel against its plain version at each shape the bootstrap
+    # gives it: one more bootstrap, each new shape also run plain.
+    t0 = time.perf_counter()
+    shapes = hold_path_to_plain(lambda: boot.bootstrap(ct), same)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    top_key = (2, ctx.num_digits(ctx.L), ctx.L + ctx.k_sp, ctx.n)
+    check(any(s[2] == top_key for s in shapes["keyswitch"]),
+          f"no key switch at the top level's key shape {top_key}")
+    check(any(len(s[0]) >= 3 for s in shapes["keyswitch"]),
+          "no stacked key switch")
+    check(any(s[3] == 2 and len(s[0]) >= 4 for s in shapes["moddown"]),
+          "no stacked pair rescale")
+    log(f"bootstrap: every kernel torch.equal to its plain version at each "
+        f"shape of the path ({plain_s:.1f} s): "
+        + ", ".join(f"{k} {len(v)} shapes" for k, v in shapes.items()))
+    log("  key switch c / key: " + ", ".join(
+        f"{list(s[0][:-1])}/{list(s[2][1:3])}" for s in shapes["keyswitch"]))
+    log("  mod-down x / k: " + ", ".join(
+        f"{list(s[0][:-1])}/{s[3]}" for s in shapes["moddown"]))
+
+    # Timed runs: one warm-up, then the median of 3 by CUDA events.
+    boot.bootstrap(ct)
+    runs = []
+    for _ in range(3):
+        runs.append(timer(lambda: boot.bootstrap(ct), iters=1, warmup=0))
+    boot_ms = float(np.median(runs))
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    boot.bootstrap(ct)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    # Per stage, as bootstrap() runs them: wall ms of one call, then the
+    # device ms of the same call from the profiler.
+    stage_ms: dict = {}
+    stage_device_ms: dict = {}
+    xs = [boot._normalize_entry(ct)]
+    for name, fn in boot.stages():
+        t0 = time.perf_counter()
+        ys = fn(xs)
+        torch.cuda.synchronize()
+        stage_ms[name] = (time.perf_counter() - t0) * 1e3
+        stage_device_ms[name] = profile_chain(
+            torch, lambda fn=fn, xs=xs: fn(xs), reps=1)["device_ms"]
+        xs = ys
+    prof = profile_chain(torch, lambda: boot.bootstrap(ct), reps=1)
+    prof["idle_share"] = 1.0 - prof["device_ms"] / boot_ms
+    peak = torch.cuda.max_memory_allocated()
+    log(f"bootstrap: {boot_ms / 1e3:.3f} s per bootstrap (CUDA events, "
+        f"median of {[round(r, 1) for r in runs]} ms); device time "
+        f"{prof['device_ms']:.1f} ms (device idle "
+        f"{100 * prof['idle_share']:.1f}%), {prof['launches']:.0f} device "
+        f"kernels per bootstrap; launches per bootstrap {launches}; peak "
+        f"memory {peak / 2 ** 30:.2f} GiB")
+    log("  per stage, wall ms / device ms: " + ", ".join(
+        f"{k} {v:.1f} / {stage_device_ms[k]:.1f}"
+        for k, v in stage_ms.items()))
+    for name, kms, cnt in prof["top"]:
+        log(f"  {kms:.3f} ms  x{cnt:.0f}  {name}")
+    return {"limbs": ctx.L, "slots": BOOT_SLOTS, "plan_s": plan_s,
+            "keygen_s": keygen_s, "galois_keys": len(ev.galois_keys.keys),
+            "first_s": first_s, "ms_runs": runs, "ms": boot_ms,
+            "stage_ms": stage_ms, "stage_device_ms": stage_device_ms,
+            "mean_abs_err": float(err.mean()), "max_abs_err": float(err.max()),
+            "level_in": ct.level, "level_out": out.level,
+            "launches_first": first_launches, "launches": launches,
+            "profile": prof, "peak_bytes": peak, "equal_s": equal_s,
+            "path_shapes": {k: len(v) for k, v in shapes.items()},
+            "path_plain_s": plain_s}
 
 
 def main() -> int:

@@ -7,6 +7,7 @@ same table accessors, with every table a tensor on ``ctx.device``.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from . import primes, ntt as nttmod, rns
-from .modmath import word_dtype, word_bits_of
+from .modmath import shoup, word_dtype, word_bits_of, word_tensor
 
 
 @dataclass(frozen=True)
@@ -185,6 +186,21 @@ class CkksContext:
     def base_limbs(self) -> int:
         return self.params.base_limbs
 
+    @property
+    def q0_int(self) -> int:
+        """Base modulus Q0 = prod(moduli[:base_limbs]) as an exact int."""
+        return math.prod(self.moduli[: self.base_limbs])
+
+    @property
+    def q0_float(self) -> float:
+        return float(self.q0_int)
+
+    def rescale_divisor(self, level: int) -> float:
+        """What the next rescale at `level` divides the scale by: the
+        product of the rescale_limbs trailing primes."""
+        return float(math.prod(
+            self.moduli[level - self.rescale_limbs: level]))
+
     # -- table accessors ----------------------------------------------------
 
     def tables(self, limbs: tuple[int, ...] | int) -> nttmod.NttTables:
@@ -287,6 +303,21 @@ class CkksContext:
     @property
     def galois_elt_conjugate(self) -> int:
         return 2 * self.n - 1
+
+    def p_residues(self, level: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """(P mod q_i, its Shoup word) over the key basis at `level`, each
+        [l+k, 1]; P = prod(special primes), so the special limbs hold 0.
+        Lifts a base-Q polynomial into the extended QP basis (times P) for
+        the double-hoisted rotations."""
+        def build():
+            P = math.prod(self.special)
+            limbs = self.key_limbs(level)
+            r = [P % self.all_moduli[i] for i in limbs]
+            sh = [shoup(v, self.all_moduli[i]) if v else 0
+                  for v, i in zip(r, limbs)]
+            return (word_tensor(r, self.device, (-1, 1)),
+                    word_tensor(sh, self.device, (-1, 1)))
+        return self._cached(("p_res", level), build)
 
     def const_residues(self, value: int, limbs: tuple[int, ...]) -> np.ndarray:
         """[value mod q_i] for a limb set, as a uint32 column."""

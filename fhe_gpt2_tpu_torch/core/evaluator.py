@@ -8,14 +8,18 @@ N]`` NTT-form tensors on the context's device. Key switching and mod-down
 go through ``core/tks.py`` and every transform through ``core/ntt.py``,
 which route CUDA tensors to the hand-written kernels.
 
-Not in this slice: hoisted rotations (``rotate_hoisted``,
-``hoisted_rotations_ext``, ``mod_down_ext``), the reduced-error ops and
-seeded/secure encryption.
+The hoisted rotations decompose c1 once (``tks._decompose_core``, whose
+transforms are the NTT kernels on the card) and run only the key MAC (torch
+ops, as the JAX package's XLA ops) and the mod-down kernel per rotation;
+the double-hoisted form keeps the rotations in the extended QP basis until
+one mod-down per accumulator (``mod_down_ext``).
+
+Not in this slice: seeded/secure encryption.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import numpy as np
@@ -282,8 +286,180 @@ class Evaluator:
             a = self.apply_galois(a, self.ctx.galois_elt_from_step(s))
         return a
 
+    # -- hoisted rotations -----------------------------------------------------
+
+    def _decompose(self, a: Ciphertext):
+        """(key tables, tpoly [..., D, l+k, N], D) of a's c1: the digit
+        decomposition the hoisted rotations share, on the key-switch
+        kernel's cached digit structure."""
+        ft = self.ctx.fused_ks_tables(a.level)
+        kt = self.ctx.tables(self.ctx.key_limbs(a.level))
+        return kt, tks._decompose_core(a.data[1], kt, self._t(a.level),
+                                       ft.bcts, (ft.own != 0)[..., None]), ft.D
+
+    def _hoisted_mac(self, tpoly, kt, elt: int, level: int, D: int):
+        """Permute the shared digits by the automorphism and multiply-
+        accumulate them with its key: [2, ..., l+k, N] before mod-down."""
+        tp = tpoly.index_select(-1, self.ctx.galois_perm(elt))
+        key = self.galois_keys[elt].sliced(self.ctx.key_limbs(level), D)
+        return tks._ks_mac_core(tp, key, kt)
+
+    def rotate_hoisted(self, a: Ciphertext, steps: list[int]) -> list[Ciphertext]:
+        """Many rotations of one ciphertext sharing a single digit
+        decomposition: the automorphism commutes with the per-coefficient
+        decomposition, so only the MAC and the mod-down run per rotation."""
+        ctx = self.ctx
+        l = a.level
+        kt, tpoly, D = self._decompose(a)
+        q = self._t(l).q
+        out = []
+        for s in steps:
+            s = s % (ctx.n // 2)
+            if s == 0:
+                out.append(a)
+                continue
+            hops = self._hops(s)
+            # The first hop rides the shared decomposition; the rest key-
+            # switch one by one.
+            elt = ctx.galois_elt_from_step(hops[0])
+            ks = self._mod_down_special(
+                self._hoisted_mac(tpoly, kt, elt, l, D), l)
+            c0p = a.data[0].index_select(-1, ctx.galois_perm(elt))
+            r = Ciphertext(torch.stack([add_mod(c0p, ks[0], q), ks[1]]),
+                           a.scale)
+            for h in hops[1:]:
+                r = self.apply_galois(r, ctx.galois_elt_from_step(h))
+            out.append(r)
+        return out
+
+    def make_plain_ext(self, values, scale: float, level: int) -> Plaintext:
+        """Encode a slot vector over the extended key basis QP (data limbs +
+        special primes): the operand of the double-hoisted masked sums."""
+        limbs = self.ctx.key_limbs(level)
+        res = embedding.encode(values, scale, self.ctx, limbs)
+        return Plaintext(data=nttmod.ntt(word_tensor(res, self.ctx.device),
+                                         self.ctx.tables(limbs)),
+                         scale=scale)
+
+    def hoisted_rotations_ext(self, a: Ciphertext,
+                              steps: list[int]) -> list[torch.Tensor]:
+        """Double hoisting (Bossuat et al., EUROCRYPT'21): rotations of one
+        ciphertext kept in the extended QP basis, without the per-rotation
+        mod-down. Returns per step int32[2, ..., l+k, N] holding
+        P·(rotated ct); callers mask-multiply, accumulate in QP and pay one
+        mod-down per accumulator (``mod_down_ext``)."""
+        ctx = self.ctx
+        l = a.level
+        p_res, p_shoup = ctx.p_residues(l)
+        q = self._t(l).q
+
+        def lift(ct_data):
+            """P·ct in the extended basis: the special-limb residues of P·x
+            are exactly zero, since every special prime divides P."""
+            pc = mul_mod_shoup(ct_data, p_res[:l], p_shoup[:l], q)
+            pad = pc.new_zeros((*pc.shape[:-2], ctx.k_sp, pc.shape[-1]))
+            return torch.cat([pc, pad], dim=-2)
+
+        dec = None
+        out = []
+        for s in steps:
+            s = s % (ctx.n // 2)
+            if s == 0:
+                out.append(lift(a.data))
+                continue
+            if len(self._hops(s)) > 1:
+                # No single-hop key: rotate fully and lift the result.
+                out.append(lift(self.rotate(a, s).data))
+                continue
+            if dec is None:
+                dec = self._decompose(a)
+            kt, tpoly, D = dec
+            elt = ctx.galois_elt_from_step(s)
+            acc = self._hoisted_mac(tpoly, kt, elt, l, D)
+            c0p = a.data[0].index_select(-1, ctx.galois_perm(elt))
+            pc0 = mul_mod_shoup(c0p, p_res[:l], p_shoup[:l], q)
+            e0 = torch.cat([add_mod(acc[0][..., :l, :], pc0, q),
+                            acc[0][..., l:, :]], dim=-2)
+            out.append(torch.stack([e0, acc[1]]))
+        return out
+
+    def mod_down_ext(self, data: torch.Tensor, level: int,
+                     scale: float) -> Ciphertext:
+        """Divide an extended-basis accumulator [2, ..., l+k, N] by P (exact
+        divide-and-round): the one deferred mod-down of double hoisting."""
+        return Ciphertext(self._mod_down_special(data.contiguous(), level),
+                          scale)
+
     def conjugate(self, a: Ciphertext) -> Ciphertext:
         return self.apply_galois(a, self.ctx.galois_elt_conjugate)
+
+    # -- reduced-error ops (Kim et al. CT-RSA'22) -----------------------------
+
+    def set_scale_exact(self, a: Ciphertext, target: float) -> Ciphertext:
+        """Move a ciphertext to EXACTLY `target`: multiply by 1.0 encoded at
+        the corrective scale target·q_last/scale, then rescale (one level)."""
+        l = a.level
+        assert l - self.ctx.rescale_limbs >= self.ctx.base_limbs, (
+            "set_scale_exact: out of levels")
+        cs = target * self.ctx.rescale_divisor(l) / a.scale
+        out = self.rescale(self.mul_plain(
+            a, self.make_plain(np.ones(1, dtype=np.float64), cs, l)))
+        return replace(out, scale=float(target))
+
+    def _match_scale_for_add(self, a: Ciphertext, b: Ciphertext):
+        if _scales_close(a.scale, b.scale):
+            return a, replace(b, scale=a.scale)
+        if a.scale < b.scale:
+            b, a = self._match_scale_for_add(b, a)
+            return a, b
+        f = a.scale / b.scale
+        fi = int(round(f))
+        if fi >= 1 and abs(f - fi) < 1e-6 * f:
+            return a, replace(self.mul_const_int(b, fi), scale=a.scale)
+        # Non-integer ratio (prime/scale drift): exact corrective multiply.
+        b = self.set_scale_exact(b, a.scale)
+        return self.mod_switch_to(a, b.level), b
+
+    def add_reduced_error(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        l = min(a.level, b.level)
+        a, b = self.mod_switch_to(a, l), self.mod_switch_to(b, l)
+        return self.add(*self._match_scale_for_add(a, b))
+
+    def sub_reduced_error(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        l = min(a.level, b.level)
+        a, b = self.mod_switch_to(a, l), self.mod_switch_to(b, l)
+        neg = a.scale < b.scale
+        if neg:
+            a, b = b, a
+        out = self.sub(*self._match_scale_for_add(a, b))
+        return self.negate(out) if neg else out
+
+    def multiply_reduced_error(self, a: Ciphertext, b: Ciphertext,
+                               relin: bool = True) -> Ciphertext:
+        l = min(a.level, b.level)
+        return self.multiply(self.mod_switch_to(a, l),
+                             self.mod_switch_to(b, l), relin=relin)
+
+    def rescale_to_scale(self, a: Ciphertext, target: float) -> Ciphertext:
+        """Rescale once and relabel to `target` (the q/scale drift becomes
+        approximation error, the reduced-error convention)."""
+        out = self.rescale(a)
+        assert _scales_close(out.scale, target, tol=0.05), (out.scale, target)
+        return replace(out, scale=target)
+
+
+def stack_cts(cts: list[Ciphertext], axis: int = 0) -> Ciphertext:
+    """Stack same-scale ciphertexts on a new batch axis after the component
+    axis: [k, l, N] x B -> [k, B, l, N]."""
+    assert all(_scales_close(c.scale, cts[0].scale) for c in cts)
+    return Ciphertext(torch.stack([c.data for c in cts], dim=1 + axis),
+                      cts[0].scale)
+
+
+def unstack_cts(ct: Ciphertext, axis: int = 0) -> list[Ciphertext]:
+    """The ciphertexts of one batch axis, each a contiguous copy."""
+    return [Ciphertext(ct.data.select(1 + axis, i).contiguous(), ct.scale)
+            for i in range(ct.data.shape[1 + axis])]
 
 
 # ---------------------------------------------------------------------------
@@ -361,3 +537,16 @@ class Decryptor:
         res = self.decrypt_to_rns(ct)
         return embedding.decode(res, ct.scale, self.ctx,
                                 tuple(range(ct.level)), num_slots)
+
+
+def fake_bootstrap(ct: Ciphertext, dec: Decryptor, enc: Encryptor,
+                   ev: Evaluator, target_level: int,
+                   scale: Optional[float] = None) -> Ciphertext:
+    """Decrypt/re-encrypt level reset: bring-up scaffolding only, which
+    ``boot/bootstrap.py`` replaces. Batched ciphertexts refresh one by one."""
+    scale = scale or ev.ctx.params.scale
+    if ct.batch:
+        return stack_cts([fake_bootstrap(c, dec, enc, ev, target_level, scale)
+                          for c in unstack_cts(ct)])
+    pt = ev.make_plain(dec.decrypt(ct), scale, target_level)
+    return enc.encrypt_symmetric(pt)

@@ -18,7 +18,9 @@ Route: CUDA tensors launch the kernels (or the wrapper raises); CPU tensors
 run the plain versions below, which nothing on the card path calls:
 ``switch_key_plain`` is the port of ``_decompose_core`` + ``_ks_mac_core``
 and ``mod_down_plain`` is ``mod_down_convert`` + NTT with the kernel's
-sequential float32 sum.
+sequential float32 sum. The hoisted rotations (``core/evaluator.py``) use
+the split halves themselves, as the JAX package does: ``_decompose_core``
+with its transforms on the NTT kernels, then the ``_ks_mac_core`` torch ops.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ from .ntt import NttTables, _intt_stages, _ntt_stages
 # importable from here.
 from .tntt import CLUSTER_THREADS, CLUSTER_WORDS, MAX_CLUSTER, \
     _check_aligned, _check_cluster, _geometry, _sms, cluster_for, \
-    cluster_sizes, cluster_threads, ctas_per_sm, ntt_inverse  # noqa: F401
+    cluster_sizes, cluster_threads, ctas_per_sm, ntt_forward, \
+    ntt_inverse  # noqa: F401
 
 
 # ---------------------------------------------------------------------------
@@ -106,16 +109,22 @@ def make_fused_ks_tables(ctx, level: int) -> FusedKsTables:
         src_q=word_tensor(srcq, dev))
 
 
-def _decompose_core(c, kt: NttTables, lt: NttTables, bcts, own_mask):
+def _decompose_core(c, kt: NttTables, lt: NttTables, bcts, own_mask,
+                    plain: bool = False):
     """Hybrid digit decomposition of NTT-form c[..., l, N] into
-    tpoly[..., D, l+k, N] (``evaluator._decompose_core``), plain ops only."""
-    c_coeff = _intt_stages(c, lt)
+    tpoly[..., D, l+k, N] (``evaluator._decompose_core``): the expensive
+    half of a key switch, which the hoisted rotations share. Its iNTT and
+    NTT go through ``ntt_inverse``/``ntt_forward``, so a CUDA c launches
+    the NTT kernels; ``plain=True`` runs the stage loops on any device."""
+    intt, ntt = ((_intt_stages, _ntt_stages) if plain
+                 else (ntt_inverse, ntt_forward))
+    c_coeff = intt(c, lt)
     start, digs = 0, []
     for bct in bcts:
         w = len(bct.src)
         digs.append(rns.base_convert(c_coeff[..., start:start + w, :], bct))
         start += w
-    tpoly = _ntt_stages(torch.stack(digs, dim=-3), kt)      # [..., D, l+k, N]
+    tpoly = ntt(torch.stack(digs, dim=-3), kt)              # [..., D, l+k, N]
     k_sp = tpoly.shape[-2] - c.shape[-2]
     pad = torch.zeros((*c.shape[:-2], k_sp, c.shape[-1]), dtype=c.dtype,
                       device=c.device)
@@ -136,8 +145,8 @@ def _ks_mac_core(tpoly, kdata, kt: NttTables):
 def switch_key_plain(c_ntt, kdata, lt, kt, ft: FusedKsTables):
     """Plain version of ``fused_switch_key`` on any device."""
     own_mask = (ft.own != 0)[..., None]
-    return _ks_mac_core(_decompose_core(c_ntt, kt, lt, ft.bcts, own_mask),
-                        kdata, kt)
+    return _ks_mac_core(_decompose_core(c_ntt, kt, lt, ft.bcts, own_mask,
+                                        plain=True), kdata, kt)
 
 
 def fused_switch_key(c_ntt: torch.Tensor, kdata: torch.Tensor,

@@ -1,0 +1,475 @@
+"""Dual-backend slot-vector abstraction for the encrypted kernel library.
+
+Counterpart of ``fhe_gpt2_tpu/nn/backend.py``. Kernels (the LT engine of
+``nn/linear.py``, the Chebyshev evaluator of ``approx/chebeval.py``, the
+bootstrap) are written once against this small protocol and run on:
+
+  * PlainBackend: numpy float64 arrays shaped [batch, slots]; rotations are
+    np.roll. The correctness oracle.
+  * CkksBackend: batched Ciphertexts ([k, B, l, N]); rotations are Galois
+    key switches, masks are plaintext multiplies, bootstrap is real (or the
+    fake decrypt/re-encrypt during bring-up).
+
+Mask operands are host numpy arrays; the CkksBackend encodes them on demand
+and caches them by (array identity, level, scale).
+
+The port runs eagerly: every op is issued as it is called, and
+``CkksBackend.bootstrap`` calls ``Bootstrapper.bootstrap``. The JAX
+package's program caching (``jit_sealed``/``rebind_sealed`` and the
+sequential cache keys) has no counterpart here; capturing fixed-shape
+segments in CUDA graphs is later performance work.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.context import CkksContext
+from ..core.evaluator import (
+    Ciphertext, Decryptor, Encryptor, Evaluator, Plaintext, _scales_close,
+    fake_bootstrap, stack_cts, unstack_cts)
+from ..core.modmath import mod_sum, mul_mod
+
+# Terms per int64 product in the masked sums: bounds their transients to
+# MAC_CHUNK widened copies of one operand.
+MAC_CHUNK = 8
+# Bound on id()-keyed plaintext cache entries: numpy arrays take no weak
+# references, so each entry pins its source array (a recycled id must never
+# hit a stale entry), and an LRU cap bounds the pins.
+MAX_ID_CACHE = 4096
+
+
+class PlainBackend:
+    """Numpy float64 simulator. Values: np.ndarray [..., slots]."""
+
+    def __init__(self, slots: int):
+        self.slots = slots
+
+    # -- arithmetic ---------------------------------------------------------
+    def add(self, a, b):
+        return a + b
+
+    def sub(self, a, b):
+        return a - b
+
+    def neg(self, a):
+        return -a
+
+    def mul(self, a, b):
+        return a * b
+
+    def square(self, a):
+        return a * a
+
+    def mul_plain(self, a, v, out_scale=None):
+        return a * v
+
+    def add_plain(self, a, v):
+        return a + v
+
+    def add_const(self, a, c):
+        return a + c
+
+    def mul_const(self, a, c, out_scale=None):
+        return a * c
+
+    def scale_of(self, a):
+        """Exact tracked scale of a value; None on the plain backend (scale
+        targeting is a no-op there)."""
+        return None
+
+    def rotate(self, a, steps: int):
+        return np.roll(a, -steps, axis=-1)
+
+    def rotate_many(self, a, steps):
+        return [self.rotate(a, s) for s in steps]
+
+    def mul_plain_many_sum(self, values: list, masks: list):
+        """Σ_t values[t] ⊙ masks[t] (fused masked accumulation)."""
+        acc = values[0] * masks[0]
+        for v, m in zip(values[1:], masks[1:]):
+            acc = acc + v * m
+        return acc
+
+    def conjugate(self, a):
+        return np.conj(a) if np.iscomplexobj(a) else a
+
+    # -- batch-axis ops -----------------------------------------------------
+    def stack(self, values: list):
+        """Stack same-shape values along a NEW leading batch axis."""
+        return np.stack(values)
+
+    def unstack(self, a) -> list:
+        return [a[i] for i in range(a.shape[0])]
+
+    def take_batch(self, a, idx: tuple):
+        """Advanced-index the leading batch axes (gather)."""
+        return a[idx]
+
+    def reduce_sum_batch(self, a, axis: int = 0):
+        """Sum over one batch axis (additions only: no level/scale cost)."""
+        return a.sum(axis=axis)
+
+    # -- level management (no-ops in plaintext) -----------------------------
+    def level(self, a) -> int:
+        return 1 << 30
+
+    def rescale(self, a):
+        return a
+
+    def bootstrap(self, a):
+        return a
+
+    def maybe_bootstrap(self, a, need_levels: int):
+        return a
+
+    # -- I/O ----------------------------------------------------------------
+    def from_slots(self, arr: np.ndarray):
+        return np.asarray(arr, dtype=np.float64)
+
+    def to_slots(self, a) -> np.ndarray:
+        return np.asarray(a)
+
+
+class RecordingBackend(PlainBackend):
+    """PlainBackend that records every rotation amount used: run a kernel
+    once on host data to learn the Galois key set it needs."""
+
+    def __init__(self, slots: int):
+        super().__init__(slots)
+        self.steps: set[int] = set()
+
+    def rotate(self, a, steps: int):
+        self.steps.add(steps % self.slots)
+        return super().rotate(a, steps)
+
+    def key_steps(self) -> list[int]:
+        return sorted(s for s in self.steps if s)
+
+
+@dataclass
+class _ExtValue:
+    """A rotated ciphertext held in the extended QP basis (double-hoisting
+    intermediate): data int32[2, ..., l+k, N] = P·(rotated ct)."""
+
+    data: torch.Tensor
+    scale: float
+    level: int
+
+
+def _masked_sum(values: list[torch.Tensor], pts: list[torch.Tensor],
+                q: torch.Tensor) -> torch.Tensor:
+    """Σ_t values[t]·pts[t] mod q over [2, *B, l, N] operands and [l, N]
+    plaintexts: the JAX package's stacked ``mul_mod`` + ``mod_sum`` over the
+    term axis, in chunks of MAC_CHUNK terms (an int64 sum of the canonical
+    products, reduced once, is the same canonical residue)."""
+    acc = None
+    for i in range(0, len(values), MAC_CHUNK):
+        v = torch.stack(values[i:i + MAC_CHUNK], dim=1)        # [2, T, ...]
+        p = torch.stack(pts[i:i + MAC_CHUNK])                  # [T, l, N]
+        p = p.reshape(p.shape[0], *(1,) * (v.ndim - 4), *p.shape[1:])
+        part = mul_mod(v, p, q).long().sum(dim=1)
+        acc = part if acc is None else acc + part
+    return torch.remainder(acc, q).to(torch.int32)
+
+
+@dataclass
+class CkksBackend:
+    """Encrypted backend over the evaluator; values are Ciphertexts.
+
+    Scale discipline: every value is kept at the context scale; mul and
+    mul_plain rescale immediately (reduced-error relabelling)."""
+
+    ctx: CkksContext
+    ev: Evaluator
+    enc: Optional[Encryptor] = None
+    dec: Optional[Decryptor] = None          # only for fake bootstrap / debug
+    boot: Optional[object] = None            # boot.Bootstrapper once built
+    default_level: int = 0
+    min_level_headroom: int = 3
+    _plain_cache: dict = field(default_factory=dict)
+    _keepalive: dict = field(default_factory=dict)
+    # Take the single-hoisted LT path (a mod-down per baby rotation) in
+    # place of the double-hoisted one.
+    no_ext_hoist: bool = False
+
+    @property
+    def slots(self) -> int:
+        return self.ctx.params.slots
+
+    # -- plaintext encoding cache ------------------------------------------
+    def _pin(self, key, v) -> None:
+        """Pin an id()-keyed cache source and LRU-evict beyond the cap
+        (entry and pin together, so a recycled id can never alias)."""
+        self._keepalive[key] = v
+        while len(self._keepalive) > MAX_ID_CACHE:
+            old = next(iter(self._keepalive))
+            del self._keepalive[old]
+            self._plain_cache.pop(old, None)
+
+    def _plain(self, v: np.ndarray, level: int, scale: float) -> Plaintext:
+        key = ("q", id(v), level, scale)
+        out = self._plain_cache.get(key)
+        if out is None:
+            self._pin(key, v)
+            v = np.asarray(v)
+            if v.ndim > 1 and v.shape[-1] == self.slots:
+                # Batched mask [batch..., slots]: one plaintext per row,
+                # stacked into [batch..., l, N] to broadcast against a
+                # batched ciphertext.
+                pts = [self.ev.make_plain(r, scale, level)
+                       for r in v.reshape(-1, self.slots)]
+                data = torch.stack([p.data for p in pts]).reshape(
+                    *v.shape[:-1], *pts[0].data.shape)
+                out = Plaintext(data=data, scale=scale)
+            else:
+                out = self.ev.make_plain(v.ravel(), scale, level)
+            self._plain_cache[key] = out
+        return out
+
+    def _plain_ext(self, v: np.ndarray, level: int, scale: float) -> Plaintext:
+        key = ("ext", id(v), level, scale)
+        out = self._plain_cache.get(key)
+        if out is None:
+            self._pin(key, v)
+            out = self.ev.make_plain_ext(np.asarray(v).ravel(), scale, level)
+            self._plain_cache[key] = out
+        return out
+
+    # -- arithmetic ---------------------------------------------------------
+    def _add_guard(self, a, b):
+        """A reduced-error add with a non-integer scale ratio needs one
+        corrective multiply: refresh the operands first when at the level
+        floor. Close or integer-ratio scales are free."""
+        if _scales_close(a.scale, b.scale):
+            return a, b
+        f = max(a.scale, b.scale) / min(a.scale, b.scale)
+        if abs(f - round(f)) < 1e-6 * f:
+            return a, b
+        return self._ab(a), self._ab(b)
+
+    def add(self, a, b):
+        a, b = self._add_guard(a, b)
+        return self.ev.add_reduced_error(a, b)
+
+    def sub(self, a, b):
+        a, b = self._add_guard(a, b)
+        return self.ev.sub_reduced_error(a, b)
+
+    def neg(self, a):
+        return self.ev.negate(a)
+
+    @property
+    def _floor(self) -> int:
+        """Level floor below which multiplicative ops refresh first:
+        min_level_headroom logical levels above the bootstrap base."""
+        ctx = self.ctx
+        return (ctx.base_limbs - 1
+                + self.min_level_headroom * ctx.rescale_limbs)
+
+    def _ab(self, a):
+        """Auto-bootstrap when level headroom is exhausted: a
+        multiplicative op refreshes its operand first at the level floor,
+        through the real Bootstrapper, or else the fake decrypt/re-encrypt
+        when a decryptor and an encryptor are bound."""
+        if a.level > self._floor:
+            return a
+        if self.boot is not None or (self.dec is not None
+                                     and self.enc is not None):
+            return self.bootstrap(a)
+        return a
+
+    def _ab_rot(self, a):
+        """Level guard for level-free ops (rotations, stacking): refresh only
+        under a real Bootstrapper."""
+        if self.boot is not None and a.level <= self._floor:
+            return self.bootstrap(a)
+        return a
+
+    def mul(self, a, b):
+        """ct×ct multiply + rescale with exact scale tracking: the result
+        scale is a.scale·b.scale/q_last, never relabelled."""
+        a, b = self._ab(a), self._ab(b)
+        return self.ev.rescale(self.ev.multiply_reduced_error(a, b))
+
+    def square(self, a):
+        a = self._ab(a)
+        return self.ev.rescale(self.ev.square(a))
+
+    def mul_plain(self, a, v, out_scale: float = None):
+        """Scale-targeted plain multiply: the plaintext scale is chosen so
+        that the rescaled product lands exactly at out_scale (default: the
+        context scale)."""
+        a = self._ab(a)
+        delta = out_scale or self.ctx.params.scale
+        cs = delta * self.ctx.rescale_divisor(a.level) / a.scale
+        out = self.ev.mul_plain(a, self._plain(v, a.level, cs))
+        return self.ev.rescale_to_scale(out, delta)
+
+    def add_plain(self, a, v):
+        return self.ev.add_plain(a, self._plain(v, a.level, a.scale))
+
+    def add_const(self, a, c):
+        return self.ev.add_const(a, float(c))
+
+    def mul_const(self, a, c, out_scale: float = None):
+        c = float(c)
+        if out_scale is None and c == int(c) and abs(c) < 2 ** 40:
+            # Exact integer multiply: free (no level, no scale change).
+            return self.ev.mul_const_int(a, int(c))
+        a = self._ab(a)
+        delta = out_scale or self.ctx.params.scale
+        cs = delta * self.ctx.rescale_divisor(a.level) / a.scale
+        out = self.ev.mul_const(a, c, const_scale=cs)
+        return self.ev.rescale_to_scale(out, delta)
+
+    def scale_of(self, a) -> float:
+        return a.scale
+
+    def rotate(self, a, steps: int):
+        return self.ev.rotate(self._ab_rot(a), steps)
+
+    def rotate_many(self, a, steps):
+        """Hoisted multi-rotation (one digit decomposition); the source is
+        refreshed once when the level floor is hit."""
+        return self.ev.rotate_hoisted(self._ab_rot(a), list(steps))
+
+    def mul_plain_many_sum(self, values: list, masks: list):
+        """Σ_t values[t] ⊙ masks[t] as batched dyadic products, one modular
+        reduction and a single rescale: the LT engine's inner MAC."""
+        a0 = values[0]
+        lvl = min(v.level for v in values)
+        delta = self.ctx.params.scale
+        cs = delta * self.ctx.rescale_divisor(lvl) / a0.scale
+        acc = _masked_sum([v.data[..., :lvl, :] for v in values],
+                          [self._plain(m, lvl, cs).data for m in masks],
+                          self.ctx.tables(lvl).q)
+        return self.ev.rescale_to_scale(Ciphertext(acc, a0.scale * cs), delta)
+
+    def conjugate(self, a):
+        return self.ev.conjugate(a)
+
+    # -- batch-axis ops -----------------------------------------------------
+    def stack(self, values: list):
+        vals = [self._ab_rot(v) for v in values]
+        lvl = min(v.level for v in vals)
+        return stack_cts([self.ev.mod_switch_to(v, lvl) for v in vals])
+
+    def unstack(self, a) -> list:
+        return unstack_cts(a)
+
+    def take_batch(self, a, idx: tuple):
+        """Gather over the batch axes (component axis 0 untouched)."""
+        return Ciphertext(a.data[(slice(None),) + tuple(idx)].contiguous(),
+                          a.scale)
+
+    def reduce_sum_batch(self, a, axis: int = 0):
+        return Ciphertext(mod_sum(a.data, self.ctx.tables(a.level).q,
+                                  axis=1 + axis), a.scale)
+
+    # -- double-hoisted LT path (see Evaluator.hoisted_rotations_ext) --------
+
+    def lt_hoist_ext(self, xs: list, needed: dict):
+        """Baby-rotate each source in the extended QP basis.
+
+        needed: {src_index: sorted rotation amounts}. Returns
+        {(src, amount): _ExtValue}. Sources are aligned to a common level
+        first; sources sharing an amount set are stacked and decomposed as
+        one batched ciphertext."""
+        srcs = {s: self._ab_rot(xs[s]) for s in needed}
+        lvl = min(v.level for v in srcs.values())
+        by_amounts: dict = {}
+        for src, amounts in needed.items():
+            by_amounts.setdefault(tuple(amounts), []).append(src)
+        out = {}
+        for amounts, group in by_amounts.items():
+            cts = [self.ev.mod_switch_to(srcs[s], lvl) for s in group]
+            uniform = (len({c.data.shape for c in cts}) == 1
+                       and all(_scales_close(c.scale, cts[0].scale)
+                               for c in cts))
+            if len(group) == 1 or not uniform:
+                for src, c in zip(group, cts):
+                    exts = self.ev.hoisted_rotations_ext(c, list(amounts))
+                    for i, e in zip(amounts, exts):
+                        out[(src, i)] = _ExtValue(e, c.scale, lvl)
+                continue
+            stacked = stack_cts(cts)
+            exts = self.ev.hoisted_rotations_ext(stacked, list(amounts))
+            for i, e in zip(amounts, exts):
+                for bi, src in enumerate(group):
+                    out[(src, i)] = _ExtValue(e[:, bi], stacked.scale, lvl)
+        return out
+
+    def rotate_same_batched(self, values: list, steps: int):
+        """Rotate several same-shape values by the same amount as one
+        batched key switch (stack → rotate → unstack): the LT engine's giant
+        step across destination accumulators."""
+        if (len(values) == 1
+                or len({v.data.shape for v in values}) != 1
+                or not all(_scales_close(v.scale, values[0].scale)
+                           for v in values)):
+            return [self.rotate(v, steps) for v in values]
+        return unstack_cts(self.rotate(stack_cts(values), steps))
+
+    def lt_mask_sum_ext(self, exts: list, masks: list):
+        """Σ_t masks[t] ⊙ exts[t] accumulated in the QP basis, then one
+        mod-down and rescale: one mod-down per destination accumulator in
+        place of one per rotation."""
+        e0 = exts[0]
+        lvl = e0.level
+        assert all(e.level == lvl for e in exts)
+        assert all(_scales_close(e.scale, e0.scale) for e in exts), \
+            "lt_mask_sum_ext: mixed ext scales would be mis-weighted"
+        delta = self.ctx.params.scale
+        cs = delta * self.ctx.rescale_divisor(lvl) / e0.scale
+        kt = self.ctx.tables(self.ctx.key_limbs(lvl))
+        acc = _masked_sum([e.data for e in exts],
+                          [self._plain_ext(m, lvl, cs).data for m in masks],
+                          kt.q)
+        out = self.ev.mod_down_ext(acc, lvl, e0.scale * cs)
+        return self.ev.rescale_to_scale(out, delta)
+
+    # -- level management ---------------------------------------------------
+    def level(self, a) -> int:
+        return a.level
+
+    def rescale(self, a):
+        return self.ev.rescale(a)
+
+    def bootstrap(self, a):
+        if self.boot is not None:
+            # Entry normalisation happens inside the Bootstrapper.
+            return self.boot.bootstrap(a)
+        # Bring-up path: decrypt/re-encrypt.
+        assert self.dec is not None and self.enc is not None
+        return fake_bootstrap(a, self.dec, self.enc, self.ev,
+                              self.default_level or self.ctx.L)
+
+    def maybe_bootstrap(self, a, need_levels: int):
+        # need_levels counts logical levels (multiplicative depth); convert
+        # to limbs above the bootstrap base.
+        ctx = self.ctx
+        if a.level <= need_levels * ctx.rescale_limbs + ctx.base_limbs:
+            return self.bootstrap(a)
+        return a
+
+    # -- I/O ----------------------------------------------------------------
+    def from_slots(self, arr: np.ndarray, level: Optional[int] = None):
+        level = level or self.default_level or self.ctx.L
+        arr = np.asarray(arr, dtype=np.float64)
+        scale = self.ctx.params.scale
+        if arr.ndim == 1:
+            return self.enc.encrypt(self.ev.make_plain(arr, scale, level))
+        return stack_cts([self.enc.encrypt(self.ev.make_plain(r, scale, level))
+                          for r in arr])
+
+    def to_slots(self, a) -> np.ndarray:
+        assert self.dec is not None
+        if a.batch:
+            return np.stack([np.real(self.dec.decrypt(c))
+                             for c in unstack_cts(a)])
+        return np.real(self.dec.decrypt(a))

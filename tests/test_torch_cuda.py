@@ -230,3 +230,120 @@ def test_main_path_on_card_equals_cpu(cuda, composite):
         outs[str(dev)] = {k: v.data.cpu() for k, v in res.items()}
     for k, v in outs["cpu"].items():
         assert torch.equal(outs["cuda"][k], v), k
+
+
+# ---------------------------------------------------------------------------
+# Hoisted rotations, ModRaise and the bootstrap on the card
+# ---------------------------------------------------------------------------
+
+HOIST_KEYS = [1, 2, 5]
+HOIST_STEPS = [0, 1, 3, 5]        # 3 = 2 + 1: the multi-hop branches
+
+
+def _hoist_run(dev, logn, stacked):
+    """Keys, a (stacked) ciphertext and the hoisted paths' outputs on one
+    device, on a composite chain (6 limbs, 3 special primes)."""
+    from fhe_gpt2_tpu_torch.boot.bootstrap import mod_raise
+    from fhe_gpt2_tpu_torch.core.evaluator import stack_cts
+    ctx = _ctx(dev, True, logn)
+    kg = KeyGenerator(ctx, seed=3)
+    ev = Evaluator(ctx, relin_key=kg.relin_key(),
+                   galois_keys=kg.galois_keys(HOIST_KEYS, conjugate=True))
+    enc = Encryptor(ctx, secret=kg.secret, seed=4)
+    rng = np.random.default_rng(1)
+    xs = [rng.uniform(-1, 1, ctx.params.slots) for _ in range(2)]
+    cts = [enc.encrypt(ev.make_plain(x, ctx.params.scale, ctx.L)) for x in xs]
+    ct = stack_cts(cts) if stacked else cts[0]
+    exts = ev.hoisted_rotations_ext(ct, HOIST_STEPS)
+    base = ev.mod_switch_to(ct, ctx.base_limbs)
+    out = {"ext": exts,
+           "mod_down_ext": [ev.mod_down_ext(e, ct.level, ct.scale).data
+                            for e in exts],
+           "rotate_hoisted": [r.data for r in ev.rotate_hoisted(ct,
+                                                                HOIST_STEPS)],
+           "mod_raise": [mod_raise(ctx, base).data]}
+    return out, (ctx, kg, ev, ct, xs)
+
+
+@pytest.mark.parametrize("logn", [11, 15])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_hoisted_paths_and_mod_raise_on_card_equal_cpu(cuda, logn, stacked):
+    """hoisted_rotations_ext, mod_down_ext, rotate_hoisted and ModRaise on
+    the card give the CPU route's words; the rotations decrypt."""
+    got, (ctx, kg, ev, ct, xs) = _hoist_run(cuda, logn, stacked)
+    want, _ = _hoist_run("cpu", logn, stacked)
+    for name in want:
+        for i, (g, w) in enumerate(zip(got[name], want[name])):
+            assert torch.equal(g.cpu(), w), (name, i)
+    dec = Decryptor(ctx, kg.secret)
+    from fhe_gpt2_tpu_torch.core.evaluator import Ciphertext
+    for s, r in zip(HOIST_STEPS, got["rotate_hoisted"]):
+        c = Ciphertext(r[:, 0] if stacked else r, ct.scale)
+        assert np.max(np.abs(dec.decrypt(c) - np.roll(xs[0], -s))) < 1e-6, s
+
+
+def test_hoisted_decomposition_runs_on_the_ntt_kernels(cuda):
+    """On CUDA tensors the shared decomposition takes one iNTT and one NTT
+    kernel launch and no key-switch kernel; the extended-basis rotations
+    add none beyond it, and each mod_down_ext is one mod-down call."""
+    ctx = _cached_ctx(cuda, True, 15)
+    kg = KeyGenerator(ctx, seed=3)
+    ev = Evaluator(ctx, galois_keys=kg.galois_keys([1, 5]))
+    ct = Encryptor(ctx, secret=kg.secret, seed=4).encrypt(
+        ev.make_plain(np.ones(4), ctx.params.scale, ctx.L))
+    torch.cuda.synchronize()
+    before = dict(_cuda.LAUNCHES)
+    kt, tpoly, D = ev._decompose(ct)
+    torch.cuda.synchronize()
+    assert tpoly.is_cuda and tpoly.shape == (D, ctx.L + ctx.k_sp, ctx.n)
+    d = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
+    assert d == {"ntt_fwd": 1, "ntt_inv": 1, "keyswitch": 0, "moddown": 0}
+    before = dict(_cuda.LAUNCHES)
+    exts = ev.hoisted_rotations_ext(ct, [1, 5])
+    d = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
+    assert d == {"ntt_fwd": 1, "ntt_inv": 1, "keyswitch": 0, "moddown": 0}
+    before = dict(_cuda.LAUNCHES)
+    for e in exts:
+        ev.mod_down_ext(e, ct.level, ct.scale)
+    d = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
+    # Each mod-down call is its iNTT of the special limbs and md_fused.
+    assert d == {"ntt_fwd": 0, "ntt_inv": 2, "keyswitch": 0, "moddown": 2}
+
+
+def _bootstrap_run(dev):
+    """A whole bootstrap at logN=11 (composite, 46 limbs, 64 sparse slots,
+    EvalMod K=12 / degree 45 from the port's cache) on one device."""
+    from fhe_gpt2_tpu_torch.boot.bootstrap import Bootstrapper, make_evalmod
+    from fhe_gpt2_tpu_torch.nn.backend import CkksBackend
+    ns = 64
+    params = CkksParams.create_composite(
+        logn=11, num_levels=22, log_scale=50, log_q0=55, log_special=31,
+        num_special=2, hamming_weight=16, sparse_slots=ns)
+    ctx = CkksContext(params, device=dev)
+    kg = KeyGenerator(ctx, seed=3)
+    ev = Evaluator(ctx, relin_key=kg.relin_key())
+    enc = Encryptor(ctx, secret=kg.secret, seed=4)
+    B = CkksBackend(ctx=ctx, ev=ev, enc=enc, default_level=ctx.L)
+    eps = params.scale / ctx.q0_float
+    boot = Bootstrapper(B, num_slots=ns, evalmod=make_evalmod(
+        K=12, eps=max(eps * 1.05, 2 ** -5), degree=45, arcsin_degree=3,
+        prec_dps=60))
+    ev.galois_keys = kg.galois_keys(boot.required_steps(), conjugate=True)
+    z = np.random.default_rng(5).uniform(-1, 1, ns)
+    ct = enc.encrypt(ev.make_plain(z, params.scale, ctx.base_limbs))
+    return boot.bootstrap(ct), z, Decryptor(ctx, kg.secret), ctx
+
+
+def test_bootstrap_on_card_within_bounds_and_equal_cpu(cuda):
+    """Mean < 5e-4, max < 2e-3 (tests/test_composite.py's bounds), back up
+    the chain, every kernel launched, and the CPU route's words."""
+    _cuda.reset_launches()
+    out, z, dec, ctx = _bootstrap_run(cuda)
+    torch.cuda.synchronize()
+    assert all(v > 0 for v in _cuda.LAUNCHES.values()), _cuda.LAUNCHES
+    assert out.level >= ctx.base_limbs + 2 * ctx.rescale_limbs
+    err = np.abs(np.real(dec.decrypt(out, num_slots=64)) - z)
+    assert err.mean() < 5e-4 and err.max() < 2e-3, (err.mean(), err.max())
+    want = _bootstrap_run("cpu")[0]
+    assert out.scale == want.scale
+    assert torch.equal(out.data.cpu(), want.data)
