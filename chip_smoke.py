@@ -66,7 +66,23 @@ Phases (any failed check exits non-zero and prints no result):
              two bootstraps; then seconds per image, bootstraps and their
              seconds, the block's device ms, kernels and idle share from
              torch.profiler, and peak memory;
-  8. report  one JSON line of kernels, the card's name and power limit, and
+  8. gpt2    one GPT-2 block and ln_f at GPT-2 small's width (768 wide, 12
+             heads, seq 16: two ciphertexts of 16384 slots; synthetic
+             weights from numpy seed 0) encrypted through run_gpt2's
+             parse_args, load_model, build_session and encrypted_forward on
+             the ResNet phase's 80-limb chain at h=64, with base-16 digit
+             keys and the driver's decrypt/re-encrypt refresh to the chain
+             top: the plain run's top-1 the float oracle's (forward_float)
+             and within 0.01 of it; the decrypted hidden state within
+             ERR_BOUND_GPT2 of the plain run with the same logits top-1;
+             every refresh input below 2^62/Δ, the refreshes printed by call
+             site; launch counts zeroed just before and read just after,
+             every kernel launched by the block; every kernel torch.equal to
+             its plain version at each shape of one attention (the Δ batch
+             of 32 ciphertexts); then seconds per block, mask encodings,
+             launches per block, the attention's device ms, kernels and idle
+             share from torch.profiler, and peak memory;
+  9. report  one JSON line of kernels, the card's name and power limit, and
              the last line {"ok": true, "device": {...}}.
 
 It imports the port only, never jax or fhe_gpt2_tpu. Without a CUDA device,
@@ -76,6 +92,7 @@ or without the package beside it, it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -115,6 +132,24 @@ RESNET_ARGS = ["--composite", "--log-scale", "54", "--real-boot",
                "0", "--sign-log2-err", "-10"]
 ERR_BOUND_RESNET = 0.1    # phase 7: max |encrypted - plain| logit (the bound
                           # of tests/test_resnet_composite_boot.py)
+# run_gpt2's flags for phase 8: one GPT-2 block and ln_f at GPT-2 small's
+# width (768 wide, 12 heads, seq 16: two ciphertexts of 16384 slots) on the
+# ResNet phase's 80-limb chain at h=64, base-16 digit keys, synthetic weights
+# (numpy seed 0), LayerNorm Newton seeds at 1.25x the float forward's largest
+# row, and the driver's own refresh: decrypt/re-encrypt to the chain top at
+# the backend's floor (3 level pairs). 13 Newton iterations, not the
+# driver's 12: the count sets where the refreshes land, and on this chain
+# (tools/gpt2_refreshes.py --logn 15) 6 and 9 refresh Σz²-scale values no
+# encoding holds, and 10-12 run the exp ladder's squarings where the
+# rescale primes drift its scale until the causal mask after it cannot be
+# encoded; 13 (and 7) do neither, and 13 refreshes least.
+GPT2_ARGS = ["--layers", "1", "--seq", "16", "--hidden", "768", "--heads",
+             "12", "--composite", "--logn", "15", "--levels", "39",
+             "--log-scale", "54", "--nsp", "16", "--digit-keys", "--weights",
+             "synthetic", "--newton-inits", "rowmax", "--ln-iters", "13"]
+ERR_BOUND_GPT2_FLOAT = 0.01   # phase 8: max |plain - float oracle| hidden
+ERR_BOUND_GPT2 = 1e-4     # phase 8: max |encrypted - plain| hidden (PERF.md,
+                          # the prediction written before the first card run)
 
 REPLACES = {
     "ntt_fwd": "fhe_gpt2_tpu/core/tntt.py:250",
@@ -123,6 +158,10 @@ REPLACES = {
     "moddown": "fhe_gpt2_tpu/core/tks.py:157",
 }
 SPIN_CYCLES = 100_000     # profile_chain's marker kernel (~0.05 ms)
+PLAIN_CHUNK_BYTES = 1 << 27   # hold_path_to_plain: larger outputs are held
+                              # row by row (the plain key switch widens its
+                              # 788 MB output over the GPT-2 Δ batch at 80
+                              # limbs to 7.5 GiB int64 products)
 # The device kernel each wrapper launches once per call it counts.
 KERNEL_NAMES = {
     "ntt_fwd": "ntt_fwd_kernel",
@@ -168,23 +207,27 @@ class Timer:
         return start.elapsed_time(end) / iters
 
 
-def profile_chain(torch, fn, reps: int) -> dict:
+def profile_chain(torch, fn, reps: int, warm: bool = True,
+                  pad=None) -> dict:
     """Device time per call of fn, device kernels per call and the top
-    kernels by device time, from torch.profiler over reps calls. Fails when
-    the trace holds fewer (or more) of the port's kernels than the wrappers
+    kernels by device time, from torch.profiler over reps calls, after one
+    warm-up call (warm=False: the caller has just run fn). Fails when the
+    trace holds fewer (or more) of the port's kernels than the wrappers
     launched in those calls (``_cuda.LAUNCHES``): a trace that lost events
-    would understate the device time."""
+    would understate the device time. ``pad`` (default: fn) is called at
+    the start of the trace, before the counted calls."""
     from torch.profiler import ProfilerActivity, profile
     from fhe_gpt2_tpu_torch.core import _cuda
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         # The tracer can drop the first device events of a trace (on the
         # H100 it dropped up to six kernels, the first after a long
-        # untraced run): one more call of fn pads the start, and a spin
-        # kernel marks where the counted calls begin.
-        fn()
+        # untraced run): one more call of fn (or pad) pads the start, and a
+        # spin kernel marks where the counted calls begin.
+        (pad or fn)()
         torch.cuda.synchronize()
         torch.cuda._sleep(SPIN_CYCLES)
         torch.cuda.synchronize()
@@ -607,7 +650,12 @@ def run() -> dict:
     for name in REPLACES:
         kern[name]["launches_per_resnet_image"] = net["launches"][name]
 
-    # -- 8. report ----------------------------------------------------------------
+    # -- 8. gpt2 ---------------------------------------------------------------
+    result["phases"]["gpt2"] = gpt = gpt2_phase(torch, same)
+    for name in REPLACES:
+        kern[name]["launches_per_gpt2_block"] = gpt["block_launches"][name]
+
+    # -- 9. report ----------------------------------------------------------------
     rows = []
     for name in REPLACES:
         k = kern[name]
@@ -616,6 +664,7 @@ def run() -> dict:
                      "launches_per_bootstrap": k["launches_per_bootstrap"],
                      "launches_per_resnet_image":
                          k["launches_per_resnet_image"],
+                     "launches_per_gpt2_block": k["launches_per_gpt2_block"],
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": None,
@@ -653,13 +702,29 @@ def hold_path_to_plain(run, same) -> dict:
                 "moddown": (tks.fused_mod_down, tks.mod_down_plain, md_sig)}
     held: dict = {name: {} for name in wrappers}
 
+    def hold(name, out, plain, args, what):
+        """out against plain(*args); an operand with a batch axis and more
+        than PLAIN_CHUNK_BYTES of output is held row by row along its first
+        batch axis (the plain versions widen to int64, and treat batch rows
+        independently, so the rows are the whole comparison)."""
+        x = args[0]
+        ia = 1 if name == "moddown" else 0        # x's first batch axis
+        oa = 0 if name.startswith("ntt") else 1    # out's
+        if (x.dim() - 2 - ia < 1
+                or out.numel() * out.element_size() <= PLAIN_CHUNK_BYTES):
+            same(name, out, plain(*args), what)
+            return
+        for i in range(x.shape[ia]):
+            same(name, out.select(oa, i), plain(x.select(ia, i), *args[1:]),
+                 f"{what} row {i}")
+
     def recorder(name, wrapper, plain, sig):
         def call(*args, **kw):
             out = wrapper(*args, **kw)
             s, tables = sig(*args)
             if (s, tables) not in held[name]:
                 held[name][s, tables] = s
-                same(name, out, plain(*args), f"bootstrap path {s[:3]}")
+                hold(name, out, plain, args, f"path {s[:3]}")
             return out
         return call
 
@@ -679,6 +744,71 @@ def hold_path_to_plain(run, same) -> dict:
         for m, attr, wrapper in patched:
             setattr(m, attr, wrapper)
     return {name: list(h.values()) for name, h in held.items()}
+
+
+class RefreshLog:
+    """Records every refresh a CkksBackend makes (its ``bootstrap``, which
+    the level floor calls) where the refresh decrypts, as the decrypt/
+    re-encrypt refresh does: the call site as the chain of frames in
+    ``nn/layers.py`` and ``nn/kernels.py``, the input's level, its batch
+    shape and its largest |slot|, read from the refresh's own decrypts of
+    it through ``dec``."""
+
+    SITE_FILES = ("nn/layers.py", "nn/kernels.py")
+
+    def __init__(self, B, dec):
+        self.rows: list = []
+        open_rows: list = []
+        inner_boot, inner_dec = B.bootstrap, dec.decrypt
+
+        def decrypt(ct, *args, **kw):
+            out = inner_dec(ct, *args, **kw)
+            if open_rows:
+                open_rows[-1]["max_abs"] = max(
+                    open_rows[-1]["max_abs"],
+                    float(np.abs(np.real(out)).max()))
+            return out
+
+        def logged(v, **kw):
+            row = {"site": self.site(), "level": v.level,
+                   "batch": list(v.data.shape[1:-2]), "max_abs": 0.0}
+            self.rows.append(row)
+            open_rows.append(row)
+            try:
+                return inner_boot(v, **kw)
+            finally:
+                open_rows.pop()
+
+        dec.decrypt = decrypt
+        B.bootstrap = logged
+
+    @classmethod
+    def site(cls) -> str:
+        """The caller's frames in nn/layers.py and nn/kernels.py, outermost
+        first: the site a backend op (or the refresh it asks for) is called
+        from."""
+        return " > ".join(
+            f"{Path(f.filename).name}:{f.lineno} {f.name}"
+            for f in traceback.extract_stack()
+            if f.filename.replace("\\", "/").endswith(cls.SITE_FILES))
+
+    def by_site(self) -> dict:
+        """{site: {"count", "levels", "batches", "max_abs"}} in call order."""
+        out: dict = {}
+        for r in self.rows:
+            s = out.setdefault(r["site"], {"count": 0, "levels": [],
+                                           "batches": [], "max_abs": 0.0})
+            s["count"] += 1
+            for key, v in (("levels", r["level"]), ("batches", r["batch"])):
+                if v not in s[key]:
+                    s[key].append(v)
+            s["max_abs"] = max(s["max_abs"], r["max_abs"])
+        return out
+
+    def lines(self) -> list:
+        return [f"{s['count']:3d} x {site}: levels {s['levels']}, batch "
+                f"{s['batches']}, max |slot| {s['max_abs']:.4g}"
+                for site, s in self.by_site().items()]
 
 
 def bootstrap_phase(torch, timer, same) -> dict:
@@ -1064,6 +1194,230 @@ def resnet_phase(torch, timer, same) -> dict:
             "path_shapes": {k: len(v) for k, v in shapes.items()},
             "path_plain_s": plain_s, "block_profile": prof,
             "peak_bytes": peak, "phase_s": total_s}
+
+
+def plan_masks(*plans) -> int:
+    """Plaintext masks of BSGS plans (one encoding each at every level a
+    plan runs at)."""
+    return sum(len(v) for p in plans for group in p.groups.values()
+               for v in group.values())
+
+
+def gpt2_plain(args=None) -> dict:
+    """The "gpt2" phase's model on the host, through run_gpt2's own
+    functions (parse_args, load_model, plain_forward) with GPT2_ARGS: the
+    synthetic weights, the token ids, the calibrated plans, the plain
+    (slot-exact, no crypto) hidden state against the float oracle
+    (max |error| and logits top-1 agreement), each LayerNorm's largest row
+    Σz² over its Newton seed, and the masks of the block's matmuls."""
+    from fhe_gpt2_tpu_torch import run_gpt2
+    from fhe_gpt2_tpu_torch.nn import model as M
+
+    a = run_gpt2.parse_args(GPT2_ARGS if args is None else args)
+    t0 = time.perf_counter()
+    m = run_gpt2.load_model(a)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = run_gpt2.plain_forward(m)
+    plain_s = time.perf_counter() - t0
+    sums = M.ln_input_sums(m.weights, m.ids, a.layers, a.heads)
+    lns = [ln for bp in m.plans.blocks for ln in (bp.ln1, bp.ln2)]
+    rows = [r for pair in sums[:-1] for r in pair] + [sums[-1][0]]
+    top1 = float((M.logits(m.plans, plain).argmax(-1)
+                  == M.logits(m.plans, m.want).argmax(-1)).mean())
+    return {"a": a, "model": m, "plain": plain, "load_s": load_s,
+            "plain_s": plain_s,
+            "max_err_float": float(np.abs(plain - m.want).max()),
+            "top1": top1,
+            "ln_sums": [(float(r.min()), float(r.max())) for r in rows],
+            "ln_inits": [ln.newton_init for ln in lns + [m.plans.ln_f]],
+            "ln_row_ratio": [float(r.max()) / ln.newton_init
+                             for r, ln in zip(rows, lns + [m.plans.ln_f])],
+            "masks": plan_masks(*[p for bp in m.plans.blocks for p in (
+                bp.attn.q, bp.attn.k, bp.attn.v, bp.attn.o,
+                *[q for row in bp.mlp.fc1 + bp.mlp.fc2 for q in row])])}
+
+
+def gpt2_phase(torch, same) -> dict:
+    """Phase 8: one GPT-2 block and ln_f at GPT-2 small's width, encrypted
+    through run_gpt2 (see the module docstring)."""
+    from fhe_gpt2_tpu_torch import run_gpt2
+    from fhe_gpt2_tpu_torch.core import _cuda
+    from fhe_gpt2_tpu_torch.nn import layers as L
+    from fhe_gpt2_tpu_torch.nn import model as M
+
+    # The earlier phases' contexts, keys and mask caches sit in reference
+    # cycles (a backend and its Bootstrapper): collect them first.
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    net = gpt2_plain()
+    a, m = net["a"], net["model"]
+    sh = m.sh
+    log(f"gpt2: {a.layers} block + ln_f, hidden {sh.hidden}, {sh.heads} "
+        f"heads, seq {sh.seq}, {sh.slots} slots, {sh.act.n_cts} "
+        f"ciphertexts per activation; knobs {m.knobs}; plans "
+        f"{m.plans_s:.1f} s ({net['masks']} matmul masks), plain run "
+        f"{net['plain_s']:.1f} s: max |plain - float oracle| "
+        f"{net['max_err_float']:.3e} (bound {ERR_BOUND_GPT2_FLOAT}), top-1 "
+        f"agreement {net['top1']}")
+    log("gpt2: LayerNorm input row Σz² (min, max) / Newton seed: " + ", ".join(
+        f"{lo:.3e}-{hi:.3e} / {init:.3e}" for (lo, hi), init in
+        zip(net["ln_sums"], net["ln_inits"])))
+    check(net["top1"] == 1.0 and net["max_err_float"] < ERR_BOUND_GPT2_FLOAT,
+          f"gpt2 plain run against the float oracle: top-1 {net['top1']}, "
+          f"max error {net['max_err_float']}")
+    check(all(r < 1 for r in net["ln_row_ratio"]),
+          f"a LayerNorm row above its Newton seed: {net['ln_row_ratio']}")
+
+    t0 = time.perf_counter()
+    ses = run_gpt2.build_session(a, m)
+    setup_s = time.perf_counter() - t0
+    ctx, B = ses.ctx, ses.B
+    check(ctx.L == 80 and ctx.k_sp == 16 and ctx.num_digits(ctx.L) == 5,
+          f"chain: {ctx.L} limbs, k={ctx.k_sp}")
+    check(B.boot is None and B.dec is not None and B.default_level == ctx.L,
+          "gpt2: the refresh is not the driver's decrypt/re-encrypt to the "
+          "chain top")
+    limit = 2.0 ** 62 / ctx.params.scale
+    log(f"gpt2: logN={ctx.logn}, {ctx.L} limbs, k={ctx.k_sp}, floor "
+        f"{B.min_level_headroom} level pairs, refresh decrypt/re-encrypt to "
+        f"{B.default_level} limbs; keygen {ses.keygen_s:.1f} s "
+        f"({ses.galois_keys} Galois keys incl. conjugation; {setup_s:.1f} s "
+        f"with the rotation recording)")
+
+    # The counted run: launch counts zeroed just before, read just after.
+    # Wrappers record the first attention's input and wall seconds, the
+    # launches of the block alone, and the encodings.
+    rlog = RefreshLog(B, ses.dec)
+    ev = B.ev
+    encodings = [0]
+    for name in ("make_plain", "make_plain_ext"):
+        def counted(*args, inner=getattr(ev, name), **kw):
+            encodings[0] += 1
+            return inner(*args, **kw)
+        setattr(ev, name, counted)
+    seen: dict = {}
+    attention, block = L.attention, L.block
+
+    def timed_attention(B_, xs, sh_, ap, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = attention(B_, xs, sh_, ap, **kw)
+        torch.cuda.synchronize()
+        seen.setdefault("attn", (xs, ap, time.perf_counter() - t0))
+        return out
+
+    def counted_block(*args):
+        out = block(*args)
+        torch.cuda.synchronize()
+        seen.setdefault("block_launches", dict(_cuda.LAUNCHES))
+        seen.setdefault("block_s", time.perf_counter() - t0_fwd)
+        return out
+
+    L.attention, L.block = timed_attention, counted_block
+    try:
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0_fwd = time.perf_counter()
+        got = run_gpt2.encrypted_forward(ses, m)
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0_fwd
+        launches = dict(_cuda.LAUNCHES)
+    finally:
+        L.attention, L.block = attention, block
+    # Every refreshed ciphertext and the two inputs are encoded once too.
+    refreshes = rlog.by_site()
+    refreshed = sum(int(np.prod(r["batch"])) for r in rlog.rows)
+    masks = encodings[0] - refreshed - len(m.sh.act.pack(m.emb))
+    block_s = seen["block_s"]
+    plain = net["plain"]
+    err = float(np.abs(got - plain).max())
+    top1 = float((M.logits(m.plans, got).argmax(-1)
+                  == M.logits(m.plans, plain).argmax(-1)).mean())
+    largest = max(r["max_abs"] for r in rlog.rows)
+    log(f"gpt2: {block_s:.1f} s per encrypted block (encrypting the input, "
+        f"the first block of a key set: mask encodings included), forward "
+        f"with ln_f and the decrypt {forward_s:.1f} s;"
+        f" {masks} mask encodings; max |encrypted - plain| {err:.3e} (bound "
+        f"{ERR_BOUND_GPT2}), logits top-1 agreement with the plain run "
+        f"{top1}")
+    log(f"gpt2: {len(rlog.rows)} refreshes (\"refresh\": "
+        f"\"decrypt/re-encrypt\"), largest input |slot| {largest:.4g} "
+        f"(limit 2^62/Δ = {limit:.4g}), by call site:")
+    for line in rlog.lines():
+        log("  " + line)
+    log(f"gpt2: launches per block {seen['block_launches']}, per forward "
+        f"{launches}")
+    check(got.shape == plain.shape and np.isfinite(got).all(),
+          "gpt2: bad hidden state")
+    check(err < ERR_BOUND_GPT2, f"gpt2: max |encrypted - plain| {err}")
+    check(top1 == 1.0, f"gpt2: logits top-1 {top1} against the plain run")
+    check(len(rlog.rows) > 0 and largest < limit,
+          f"gpt2: refresh inputs up to {largest}, limit {limit}")
+    for name in REPLACES:
+        check(seen["block_launches"][name] > 0,
+              f"kernel {name} not launched by the GPT-2 block")
+
+    # Every kernel against its plain version at each shape one attention
+    # gives it (the Δ batch: key switches and mod-downs of 32 ciphertexts).
+    # The masks and key slices cached by the forward make room for the plain
+    # versions' int64 transients.
+    xs, ap, attn_s = seen["attn"]
+    B.release_caches()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    shapes = hold_path_to_plain(lambda: attention(B, xs, sh, ap), same)
+    torch.cuda.synchronize()
+    hold_s = time.perf_counter() - t0
+    log(f"gpt2: one attention, every kernel torch.equal to its plain "
+        f"version at each shape ({hold_s:.1f} s): "
+        + ", ".join(f"{k} {len(v)} shapes" for k, v in shapes.items()))
+    log("  key switch c / key: " + ", ".join(
+        f"{list(s[0][:-1])}/{list(s[2][1:3])}" for s in shapes["keyswitch"]))
+    log("  mod-down x / k: " + ", ".join(
+        f"{list(s[0][:-1])}/{s[3]}" for s in shapes["moddown"]))
+    check(any(int(np.prod(s[0][:-2])) == 2 * sh.seq
+              for s in shapes["keyswitch"]),
+          f"no key switch over the Δ batch of {2 * sh.seq} ciphertexts")
+    check(any(s[3] == ctx.k_sp and int(np.prod(s[0][1:-2])) == 2 * sh.seq
+              for s in shapes["moddown"]),
+          f"no k={ctx.k_sp} mod-down over the Δ batch")
+
+    # The same attention under torch.profiler: device ms, kernels and the
+    # card's idle share against its wall time in the counted run.
+    # An attention at this width takes over a minute, mostly encoding its
+    # masks on the host: the trace is padded with 64 small kernels, not a
+    # second attention.
+    x0 = torch.zeros(1, device="cuda")
+    prof = profile_chain(torch, lambda: attention(B, xs, sh, ap), reps=1,
+                         warm=False, pad=lambda: [x0 + i for i in range(64)])
+    prof["ms"] = attn_s * 1e3
+    prof["idle_share"] = 1.0 - prof["device_ms"] / prof["ms"]
+    peak = torch.cuda.max_memory_allocated()
+    total_s = time.perf_counter() - t_phase
+    log(f"gpt2: one attention {attn_s:.1f} s in the counted run, device "
+        f"{prof['device_ms']:.1f} ms (device idle "
+        f"{100 * prof['idle_share']:.1f}%), {prof['launches']:.0f} device "
+        f"kernels, port kernels {prof['port_launches']}; peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; phase {total_s:.1f} s")
+    for name, kms, cnt in prof["top"]:
+        log(f"  {kms:.3f} ms  x{cnt:.0f}  {name}")
+    return {"hidden": sh.hidden, "heads": sh.heads, "seq": sh.seq,
+            "limbs": ctx.L, "plans_s": m.plans_s, "keygen_s": ses.keygen_s,
+            "setup_s": setup_s, "galois_keys": ses.galois_keys,
+            "masks": net["masks"], "mask_encodings": masks,
+            "block_s": block_s, "forward_s": forward_s,
+            "refresh": "decrypt/re-encrypt",
+            "refreshes": refreshes, "max_abs_err": err, "top1": top1,
+            "max_err_float": net["max_err_float"], "top1_float": net["top1"],
+            "ln_sums": net["ln_sums"], "ln_inits": net["ln_inits"],
+            "block_launches": seen["block_launches"], "launches": launches,
+            "path_shapes": {k: len(v) for k, v in shapes.items()},
+            "path_plain_s": hold_s, "attn_profile": prof, "peak_bytes": peak,
+            "phase_s": total_s}
 
 
 def main() -> int:

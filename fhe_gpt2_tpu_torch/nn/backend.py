@@ -41,6 +41,10 @@ MAC_CHUNK = 8
 # references, so each entry pins its source array (a recycled id must never
 # hit a stale entry), and an LRU cap bounds the pins.
 MAX_ID_CACHE = 4096
+# Bound on the bytes those plaintexts hold on the device: a mask at 96 limbs
+# of logN=15 is 12.6 MB, so 4096 of them (a GPT-2 block at GPT-2 small's
+# width encodes 36,840) would hold 51 GB.
+MAX_CACHE_BYTES = 16 << 30
 
 
 class PlainBackend:
@@ -193,6 +197,7 @@ class CkksBackend:
     min_level_headroom: int = 3
     _plain_cache: dict = field(default_factory=dict)
     _keepalive: dict = field(default_factory=dict)
+    _cache_bytes: int = 0
     # Take the single-hoisted LT path (a mod-down per baby rotation) in
     # place of the double-hoisted one.
     no_ext_hoist: bool = False
@@ -202,43 +207,61 @@ class CkksBackend:
         return self.ctx.params.slots
 
     # -- plaintext encoding cache ------------------------------------------
-    def _pin(self, key, v) -> None:
-        """Pin an id()-keyed cache source and LRU-evict beyond the cap
-        (entry and pin together, so a recycled id can never alias)."""
+    def _store(self, key, v, pt: Plaintext) -> Plaintext:
+        """Cache pt under an id()-keyed key, pinning its source array v, and
+        evict the oldest entries beyond MAX_ID_CACHE entries or
+        MAX_CACHE_BYTES of plaintext (entry and pin together, so a recycled
+        id can never alias)."""
         self._keepalive[key] = v
-        while len(self._keepalive) > MAX_ID_CACHE:
+        self._plain_cache[key] = pt
+        self._cache_bytes += pt.data.numel() * pt.data.element_size()
+        while (len(self._keepalive) > MAX_ID_CACHE
+               or self._cache_bytes > MAX_CACHE_BYTES):
             old = next(iter(self._keepalive))
             del self._keepalive[old]
-            self._plain_cache.pop(old, None)
+            gone = self._plain_cache.pop(old)
+            self._cache_bytes -= gone.data.numel() * gone.data.element_size()
+        return pt
 
     def _plain(self, v: np.ndarray, level: int, scale: float) -> Plaintext:
         key = ("q", id(v), level, scale)
         out = self._plain_cache.get(key)
         if out is None:
-            self._pin(key, v)
-            v = np.asarray(v)
-            if v.ndim > 1 and v.shape[-1] == self.slots:
+            a = np.asarray(v)
+            if a.ndim > 1 and a.shape[-1] == self.slots:
                 # Batched mask [batch..., slots]: one plaintext per row,
                 # stacked into [batch..., l, N] to broadcast against a
                 # batched ciphertext.
                 pts = [self.ev.make_plain(r, scale, level)
-                       for r in v.reshape(-1, self.slots)]
+                       for r in a.reshape(-1, self.slots)]
                 data = torch.stack([p.data for p in pts]).reshape(
-                    *v.shape[:-1], *pts[0].data.shape)
+                    *a.shape[:-1], *pts[0].data.shape)
                 out = Plaintext(data=data, scale=scale)
             else:
-                out = self.ev.make_plain(v.ravel(), scale, level)
-            self._plain_cache[key] = out
+                out = self.ev.make_plain(a.ravel(), scale, level)
+            self._store(key, v, out)
         return out
 
     def _plain_ext(self, v: np.ndarray, level: int, scale: float) -> Plaintext:
         key = ("ext", id(v), level, scale)
         out = self._plain_cache.get(key)
         if out is None:
-            self._pin(key, v)
-            out = self.ev.make_plain_ext(np.asarray(v).ravel(), scale, level)
-            self._plain_cache[key] = out
+            out = self._store(key, v, self.ev.make_plain_ext(
+                np.asarray(v).ravel(), scale, level))
         return out
+
+    def release_caches(self) -> None:
+        """Drop every cached plaintext and every per-level key slice of the
+        evaluator's keys, giving their device memory back; what is dropped
+        is made again on its next use."""
+        self._plain_cache.clear()
+        self._keepalive.clear()
+        self._cache_bytes = 0
+        ev = self.ev
+        keys = list(ev.galois_keys.keys.values()) if ev.galois_keys else []
+        for key in keys + [ev.relin_key]:
+            if key is not None:
+                key._sliced.clear()
 
     # -- arithmetic ---------------------------------------------------------
     def _add_guard(self, a, b):

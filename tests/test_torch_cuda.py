@@ -488,3 +488,85 @@ def test_resnet_block_on_card_equals_cpu(cuda):
     assert got.scale == ref.scale
     assert torch.equal(got.data.cpu(), ref.data)
     assert np.abs(B.to_slots(got) - want).max() < 0.1
+
+
+# ---------------------------------------------------------------------------
+# The GPT-2 slice: the Δ batch's kernel shapes and a toy-width block
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lead", [(32,), (16, 2)])
+def test_keyswitch_kernel_at_the_delta_batch_equals_plain(cuda, lead):
+    """The key switch over attention's Δ batch (16 diagonals of 2
+    ciphertexts at GPT-2 small's width) at 80 limbs / 5 digits / 96 key
+    limbs, on the GPT-2 phase's chain at logN=15."""
+    key = ("resnet", 15)
+    if key not in _CTX:
+        _CTX[key] = _resnet_chain(cuda, 15)
+    ctx = _CTX[key]
+    ft = ctx.fused_ks_tables(80)
+    lt, kt = ctx.tables(80), ctx.tables(ctx.key_limbs(80))
+    rng = np.random.default_rng(32)
+    c = _residues(rng, ctx.moduli[:80], lead, ctx.n, cuda)
+    kdata = _residues(rng, kt.moduli, (2, ft.D), ctx.n, cuda)
+    got = tks.fused_switch_key(c, kdata, lt, kt, ft)
+    torch.cuda.synchronize()
+    assert got.shape == (2, *lead, 96, ctx.n)
+    assert torch.equal(got, tks.switch_key_plain(c, kdata, lt, kt, ft))
+
+
+@pytest.mark.parametrize("lead", [(2, 32), (2, 16, 2)])
+def test_moddown_kernel_at_the_delta_batch_equals_plain(cuda, lead):
+    """The k=16 key-switch mod-down over the Δ batch, [2, 32, 96, N] ->
+    [2, 32, 80, N], on the GPT-2 phase's chain at logN=15."""
+    key = ("resnet", 15)
+    if key not in _CTX:
+        _CTX[key] = _resnet_chain(cuda, 15)
+    ctx = _CTX[key]
+    drop = tuple(ctx.L + i for i in range(ctx.k_sp))
+    ft = ctx.fused_md_tables(80)
+    assert ft.k == 16
+    x = _residues(np.random.default_rng(33), ctx.moduli[:80] + ctx.special,
+                  lead, ctx.n, cuda)
+    args = (ctx.tables(drop), ctx.tables(80), ft)
+    got = tks.fused_mod_down(x, *args)
+    torch.cuda.synchronize()
+    assert got.shape == (*lead, 80, ctx.n)
+    assert torch.equal(got, tks.mod_down_plain(x, *args))
+
+
+# run_gpt2's flags for a toy-width GPT-2 block (32 wide, 4 heads, seq 16:
+# two ciphertexts at logN=10) on a short composite chain, with the
+# decrypt/re-encrypt refresh to the chain top.
+GPT2_TOY = ["--layers", "1", "--composite", "--logn", "10", "--levels", "10",
+            "--nsp", "4", "--ln-iters", "4", "--weights", "synthetic",
+            "--newton-inits", "rowmax"]
+
+
+def _gpt2_block_run(dev):
+    """One GPT-2 block and ln_f through run_gpt2's load_model and
+    build_session on ``dev``: the output ciphertexts, the backend and the
+    plain run's hidden state."""
+    from fhe_gpt2_tpu_torch import run_gpt2
+    from fhe_gpt2_tpu_torch.nn import model as M
+    a = run_gpt2.parse_args(GPT2_TOY + (["--cpu"] if dev == "cpu" else []))
+    m = run_gpt2.load_model(a)
+    ses = run_gpt2.build_session(a, m)
+    xs = [ses.B.from_slots(v) for v in m.sh.act.pack(m.emb)]
+    return M.forward(ses.B, xs, m.plans), ses.B, m, run_gpt2.plain_forward(m)
+
+
+def test_gpt2_block_on_card_equals_cpu(cuda):
+    """LayerNorm, attention over the Δ batch, MLP and ln_f on the card, with
+    their refreshes: the CPU route's words, and the plain run's hidden
+    state within 1e-3."""
+    _cuda.reset_launches()
+    got, B, m, plain = _gpt2_block_run(cuda)
+    torch.cuda.synchronize()
+    assert all(v > 0 for v in _cuda.LAUNCHES.values()), _cuda.LAUNCHES
+    ref = _gpt2_block_run("cpu")[0]
+    assert len(got) == len(ref) == 2
+    for g, r in zip(got, ref):
+        assert g.scale == r.scale
+        assert torch.equal(g.data.cpu(), r.data)
+    hidden = m.sh.act.unpack(np.stack([B.to_slots(o) for o in got]))
+    assert np.abs(hidden - plain).max() < 1e-3
