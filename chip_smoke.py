@@ -52,20 +52,40 @@ Phases (any failed check exits non-zero and prints no result):
              memory;
   7. resnet  ResNet-20 at full width (16/32/64 channels, one 3x32x32 image
              in one ciphertext of 16384 slots, synthetic weights from numpy
-             seed 0) encrypted through run_resnet.build_session on the
+             seed 0) served by the secure-inference service on the
              composite chain of 39 level pairs = 80 limbs with 16 special
-             primes (5 digits, 96 key limbs), 48 base-16 digit keys and
-             conjugation, real bootstraps (CtS and StC in 3 factors): the
-             plain run's pre-ReLU inputs inside the sign's domain and its
-             argmax the float oracle's; the decrypted logits' argmax the
-             float oracle's and the plain run's, within 0.1 of the plain
-             logits; every refresh the one before a ReLU, leaving at the
-             post-bootstrap level; launch counts zeroed just before and read
-             just after, every kernel launched; every kernel torch.equal to
-             its plain version at each shape of one residual block and its
-             two bootstraps; then seconds per image, bootstraps and their
-             seconds, the block's device ms, kernels and idle share from
-             torch.profiler, and peak memory;
+             primes (5 digits, 96 key limbs): first the native runtime is
+             built and its encoder held equal to the numpy route; the client
+             (context, keys from seed 1 with 48 base-16 digit keys and
+             conjugation, encryptor seed 2, decryptor) uploads params, relin
+             key and one frame per Galois key through init_session_stream,
+             drops its evaluation keys, encrypts the packed image and sends
+             it through evaluate; the server (SecureInferenceServer, over
+             loopback gRPC; the phase needs grpcio) builds its context and
+             backend from the frames alone, with no encryptor or decryptor,
+             and on its first call the Bootstrapper (CtS and StC in 3
+             factors) from the uploaded keys, then runs the forward. Checks:
+             the plain run's pre-ReLU inputs inside the sign's domain and
+             its argmax the float oracle's; the decrypted logits' argmax
+             the float oracle's and the plain run's, within 0.1 of the plain
+             logits;
+             every refresh the one before a ReLU, leaving at the
+             post-bootstrap level; launch counts zeroed just before the
+             request and read just after its answer, every kernel launched;
+             every kernel torch.equal to its plain version at each shape of
+             one residual block and its two bootstraps on the server's
+             backend; then the transport, the upload's frames, bytes (raw
+             and on the wire) and seconds (client serialization, server
+             load, the rest), the request's round trip and bytes, seconds
+             per image (model_fn), bootstraps and their seconds, the block's
+             device ms, kernels and idle share from torch.profiler, and peak
+             memory;
+  7b. pir    EmbeddingPIRServer over the first 1024 rows of GPT-2 small's
+             synthetic wte (seed 0) at its full width 768, on a logN=11
+             uint32 chain (1024 slots, one query ciphertext), served on the
+             card and on the CPU: three token queries through
+             evaluate_stream, each answer within 1e-3 of its table row and
+             torch.equal to the CPU route's; every kernel launched;
   8. gpt2    one GPT-2 block and ln_f at GPT-2 small's width (768 wide, 12
              heads, seq 16: two ciphertexts of 16384 slots; synthetic
              weights from numpy seed 0) encrypted through run_gpt2's
@@ -132,6 +152,10 @@ RESNET_ARGS = ["--composite", "--log-scale", "54", "--real-boot",
                "0", "--sign-log2-err", "-10"]
 ERR_BOUND_RESNET = 0.1    # phase 7: max |encrypted - plain| logit (the bound
                           # of tests/test_resnet_composite_boot.py)
+PIR_LOGN = 11             # phase 7b: the smallest N the NTT kernels take
+PIR_ROWS, PIR_WIDTH = 1024, 768   # the first rows of GPT-2 small's wte
+PIR_TOKENS = [7, 500, 1023]
+ERR_BOUND_PIR = 1e-3      # phase 7b: max |answer - table row|
 # run_gpt2's flags for phase 8: one GPT-2 block and ln_f at GPT-2 small's
 # width (768 wide, 12 heads, seq 16: two ciphertexts of 16384 slots) on the
 # ResNet phase's 80-limb chain at h=64, base-16 digit keys, synthetic weights
@@ -650,6 +674,10 @@ def run() -> dict:
     for name in REPLACES:
         kern[name]["launches_per_resnet_image"] = net["launches"][name]
 
+    result["phases"]["pir"] = pir = pir_phase(torch)
+    for name in REPLACES:
+        kern[name]["launches_per_pir_request"] = pir["launches"][name]
+
     # -- 8. gpt2 ---------------------------------------------------------------
     result["phases"]["gpt2"] = gpt = gpt2_phase(torch, same)
     for name in REPLACES:
@@ -664,6 +692,8 @@ def run() -> dict:
                      "launches_per_bootstrap": k["launches_per_bootstrap"],
                      "launches_per_resnet_image":
                          k["launches_per_resnet_image"],
+                     "launches_per_pir_request":
+                         k["launches_per_pir_request"],
                      "launches_per_gpt2_block": k["launches_per_gpt2_block"],
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -1030,16 +1060,113 @@ def resnet_plain(depth: int = RESNET_DEPTH, h: int = 32,
             "pre_relu_max": max(pre_relu), "relus": len(pre_relu)}
 
 
+class WireLog:
+    """Records every serialize call of the port (``net/serialize.py``'s
+    dump_* and load_* functions) in the order they run, with its seconds,
+    the raw bytes (header and uncompressed payload) and the wire bytes of
+    the blob it writes or reads: the client's and the server's halves of an
+    upload or a request, in one process."""
+
+    def __init__(self):
+        from fhe_gpt2_tpu_torch.net import serialize as S
+        self.S = S
+        self.rows: list = []
+        self._saved = {}
+        for name in dir(S):
+            if name.startswith(("dump_", "load_")):
+                self._saved[name] = getattr(S, name)
+                setattr(S, name, self._wrap(name, self._saved[name]))
+
+    def _wrap(self, name, fn):
+        import struct
+
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            dt = time.perf_counter() - t0
+            blob = out if name.startswith("dump_") else args[0]
+            hlen, clen, rlen = struct.unpack("<III", blob[4:16])
+            self.rows.append({"fn": name, "s": dt, "raw": 16 + hlen + rlen,
+                              "wire": len(blob)})
+            return out
+        return call
+
+    def restore(self) -> None:
+        for name, fn in self._saved.items():
+            setattr(self.S, name, fn)
+
+    def take(self) -> list:
+        rows, self.rows = self.rows, []
+        return rows
+
+    @staticmethod
+    def sums(rows, prefix: str) -> dict:
+        """Calls, seconds, raw and wire bytes of the rows whose function
+        starts with prefix."""
+        sel = [r for r in rows if r["fn"].startswith(prefix)]
+        return {"calls": len(sel), "s": sum(r["s"] for r in sel),
+                "raw": sum(r["raw"] for r in sel),
+                "wire": sum(r["wire"] for r in sel)}
+
+
+def serve(model_fn, device=None):
+    """(server, client) of the secure-inference service over loopback gRPC;
+    the server is started and listens on a free port."""
+    from fhe_gpt2_tpu_torch.net.service import SecureInferenceClient, \
+        SecureInferenceServer
+    server = SecureInferenceServer(model_fn=model_fn, port=0,
+                                   device=device).start()
+    return server, SecureInferenceClient(f"localhost:{server.port}",
+                                         device=device)
+
+
+def native_check() -> dict:
+    """The native runtime on this host: built, loaded, and its encoder
+    equal word for word to the numpy route at logN=15, Δ = 2^54 (uniform
+    and 0/1 slot vectors)."""
+    from fhe_gpt2_tpu_torch.core import embedding
+    from fhe_gpt2_tpu_torch.core.context import CkksContext, CkksParams
+    from fhe_gpt2_tpu_torch.runtime import native
+    t0 = time.perf_counter()
+    path = native.build()
+    build_s = time.perf_counter() - t0
+    check(native.available(), f"native runtime {path} does not load")
+    ctx = CkksContext(CkksParams.create_composite(
+        logn=15, num_levels=2, log_scale=54, log_q0=59, num_special=2,
+        hamming_weight=16), device="cpu")
+    rng = np.random.default_rng(4)
+    for what, z in (("uniform", rng.uniform(-1, 1, ctx.params.slots)),
+                    ("0/1", rng.integers(0, 2, ctx.params.slots) * 1.0)):
+        got = embedding.encode_to_coeffs(z, ctx.params.scale, ctx)
+        available = native.available
+        native.available = lambda: False
+        try:
+            want = embedding.encode_to_coeffs(z, ctx.params.scale, ctx)
+        finally:
+            native.available = available
+        check(np.array_equal(got, want), f"native encode ({what}) != the "
+              f"numpy route in {np.count_nonzero(got != want)} coefficients")
+    log(f"native runtime: {path} (build {build_s:.1f} s); its encoder equal "
+        f"to the numpy route at logN=15, Δ=2^54")
+    return {"path": str(path), "build_s": build_s}
+
+
 def resnet_phase(torch, timer, same) -> dict:
     """Phase 7: one encrypted image through ResNet-RESNET_DEPTH with real
-    bootstraps on the 80-limb composite chain (see the module docstring)."""
+    bootstraps on the 80-limb composite chain, served by the secure-
+    inference service (see the module docstring)."""
     from fhe_gpt2_tpu_torch import run_resnet
     from fhe_gpt2_tpu_torch.cnn import resnet as R
     from fhe_gpt2_tpu_torch.core import _cuda
+    from fhe_gpt2_tpu_torch.core.context import CkksContext
+    from fhe_gpt2_tpu_torch.core.evaluator import Decryptor, Encryptor, \
+        Evaluator
+    from fhe_gpt2_tpu_torch.core.keys import KeyGenerator, digit_steps
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
+    nat = native_check()
     net = resnet_plain()
     rp, img = net["rp"], net["img"]
     n_relus = 1 + 2 * len(rp.blocks)
@@ -1059,65 +1186,154 @@ def resnet_phase(torch, timer, same) -> dict:
     check(np.argmax(net["plain"]) == np.argmax(net["want"]),
           "plain argmax != the float oracle's")
 
+    # The client: the key owner's half of run_resnet.build_session.
     a = run_resnet.parse_args(RESNET_ARGS)
+    device = run_resnet.device_of(a)
     t0 = time.perf_counter()
-    ses = run_resnet.build_session(a, rp, img)
-    setup_s = time.perf_counter() - t0
-    ctx, B = ses.ctx, ses.B
+    ctx = CkksContext(run_resnet.make_params(a), device=device)
+    kg = KeyGenerator(ctx, seed=1)
+    relin = kg.relin_key()
+    enc = Encryptor(ctx, secret=kg.secret, seed=2)
+    dec = Decryptor(ctx, kg.secret)
+    gk = kg.galois_keys(steps=digit_steps(ctx.params.slots, base=16),
+                        conjugate=True)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    n_keys = len(gk.keys)
     check(ctx.L == 80 and ctx.k_sp == 16 and ctx.num_digits(ctx.L) == 5
           and len(ctx.key_limbs(ctx.L)) == 96,
           f"chain: {ctx.L} limbs, k={ctx.k_sp}")
     log(f"resnet: logN={ctx.logn}, {ctx.L} limbs (base {ctx.base_limbs}), "
         f"k={ctx.k_sp}, {ctx.num_digits(ctx.L)} digits, "
-        f"{len(ctx.key_limbs(ctx.L))} key limbs; keygen {ses.keygen_s:.1f} s "
-        f"({ses.galois_keys} Galois keys incl. conjugation, "
-        f"{setup_s:.1f} s with the rotation recording and the bootstrap "
-        f"plans)")
+        f"{len(ctx.key_limbs(ctx.L))} key limbs; client keygen "
+        f"{keygen_s:.1f} s ({n_keys} Galois keys incl. conjugation)")
 
-    # Which refreshes the forward asks for: the one before each ReLU
-    # (maybe_bootstrap) or an auto-refresh at the level floor.
-    boots = []
+    # The server: its context, evaluator and backend come from the uploaded
+    # frames alone. On its first call model_fn builds the Bootstrapper from
+    # the uploaded keys; it counts and times every refresh the forward asks
+    # for (the one before each ReLU, or an auto-refresh at the level floor).
+    served = {"boots": [], "boot_s": [], "calls": 0}
     where = {"planned": False, "segment": None}
-    inner_boot, inner_maybe = B.bootstrap, B.maybe_bootstrap
 
-    def counting_boot(v, **kw):
-        out = inner_boot(v, **kw)
-        boots.append((where["planned"], where["segment"], v.level, out.level))
-        return out
+    def model_fn(B, ct):
+        served["calls"] += 1
+        if B.boot is None:
+            check(B.enc is None and B.dec is None,
+                  "the server's backend holds an encryptor or a decryptor")
+            t0 = time.perf_counter()
+            B.min_level_headroom = a.headroom
+            B.boot = run_resnet.make_bootstrapper(a, B)
+            served["boot_plan_s"] = time.perf_counter() - t0
+            inner_boot, inner_maybe = B.bootstrap, B.maybe_bootstrap
 
-    def planned_boot(v, need):
-        where["planned"] = True
-        try:
-            return inner_maybe(v, need)
-        finally:
-            where["planned"] = False
+            def counting_boot(v, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = inner_boot(v, **kw)
+                torch.cuda.synchronize()
+                served["boot_s"].append(time.perf_counter() - t0)
+                served["boots"].append((where["planned"], where["segment"],
+                                        v.level, out.level))
+                return out
 
-    B.bootstrap, B.maybe_bootstrap = counting_boot, planned_boot
-    segs = R.forward_segments(B, rp)
-    xs = [B.from_slots(v) for v in R.pack_input(rp, img)]
-    n_cts = max([len(xs)] + [b["lout"].n_cts for b in rp.blocks])
-    # The counted run: launch counts zeroed just before, read just after.
-    torch.cuda.synchronize()
-    n_boot0 = len(ses.boot_times)
-    _cuda.reset_launches()
-    t0 = time.perf_counter()
-    seg_s = []
-    stem_out = None
-    for i, seg in enumerate(segs):
-        where["segment"] = i
-        ts = time.perf_counter()
-        xs = seg(xs)
-        if i == 0:
-            stem_out = xs
+            def planned_boot(v, need):
+                where["planned"] = True
+                try:
+                    return inner_maybe(v, need)
+                finally:
+                    where["planned"] = False
+
+            B.bootstrap, B.maybe_bootstrap = counting_boot, planned_boot
+        segs = R.forward_segments(B, rp)
+        xs = [ct]
         torch.cuda.synchronize()
-        seg_s.append(time.perf_counter() - ts)
-    image_s = time.perf_counter() - t0
-    launches = dict(_cuda.LAUNCHES)
-    boot_s = ses.boot_times[n_boot0:]
-    image_boots = list(boots)
-    got = R.logits_from_slots(rp, B.to_slots(xs[0]))
+        t0 = time.perf_counter()
+        seg_s = []
+        for i, seg in enumerate(segs):
+            where["segment"] = i
+            ts = time.perf_counter()
+            xs = seg(xs)
+            if i == 0:
+                served["stem_out"] = xs
+            torch.cuda.synchronize()
+            seg_s.append(time.perf_counter() - ts)
+        served.update(image_s=time.perf_counter() - t0, seg_s=seg_s,
+                      segs=segs, B=B)
+        return xs[0]
+
+    wire = WireLog()
+    try:
+        server, client = serve(model_fn, device)
+        try:
+            import grpc
+            way = f"loopback gRPC, grpcio {grpc.__version__}"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            client.init_session_stream(ctx.params, relin_key=relin,
+                                       galois_keys=gk)
+            torch.cuda.synchronize()
+            upload_s = time.perf_counter() - t0
+            up = wire.take()
+            del relin, gk               # the client keeps only its secret
+            gc.collect()
+            torch.cuda.empty_cache()
+            ct = enc.encrypt(Evaluator(ctx).make_plain(
+                R.pack_input(rp, img)[0], ctx.params.scale,
+                run_resnet.input_level(a, ctx)))
+            wire.take()
+            # The counted run: launch counts zeroed just before the request,
+            # read just after its answer has arrived.
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            out = client.evaluate(ct)
+            torch.cuda.synchronize()
+            request_s = time.perf_counter() - t0
+            launches = dict(_cuda.LAUNCHES)
+            req = wire.take()
+        finally:
+            server.stop()
+    finally:
+        wire.restore()
+    ups = {k: WireLog.sums(up, k) for k in ("dump_", "load_")}
+    frames = ups["dump_"]["calls"]
+    # The server loads frame i while the client serializes frame i + 1: the
+    # rest of the wall time is what serialization does not hide (the
+    # transfer, the last frame's load, the server's context).
+    rest_s = upload_s - ups["dump_"]["s"]
+    check(frames == 2 + n_keys and ups["load_"]["calls"] == frames,
+          f"upload: {frames} frames written, {ups['load_']['calls']} read")
+    sB = served["B"]
+    check(served["calls"] == 1 and sB.enc is None and sB.dec is None
+          and len(sB.ev.galois_keys.keys) == n_keys
+          and sB.ev.relin_key is not None,
+          "the server's session is not the uploaded keys alone")
+    reqs = {k: WireLog.sums(req, k) for k in ("dump_ciphertext",
+                                              "load_ciphertext")}
+    check(reqs["dump_ciphertext"]["calls"] == 2
+          and reqs["load_ciphertext"]["calls"] == 2,
+          f"request: {len(req)} serialize calls")
+    response_bytes = req[-1]["wire"]
+    log(f"resnet served ({way}): upload {frames} frames (params, relin, "
+        f"{n_keys} Galois), {ups['dump_']['raw'] / 1e9:.3f} GB raw, "
+        f"{ups['dump_']['wire'] / 1e9:.3f} GB on the wire, "
+        f"{upload_s:.1f} s: client serialization "
+        f"{ups['dump_']['s']:.1f} s, server load {ups['load_']['s']:.1f} s "
+        f"(under the serialization of the next frame), the rest (transfer, "
+        f"the last load, the server's context) {rest_s:.1f} s")
+    log(f"resnet served: request round trip {request_s:.1f} s, model_fn "
+        f"{served['image_s']:.1f} s (+ Bootstrapper plans "
+        f"{served['boot_plan_s']:.1f} s on the first call); request "
+        f"{req[0]['wire'] / 1e6:.2f} MB, response {response_bytes / 1e6:.2f}"
+        f" MB on the wire; serialize s {[round(r['s'], 3) for r in req]}")
+
+    image_s, seg_s = served["image_s"], served["seg_s"]
+    boot_s = list(served["boot_s"])
+    image_boots = list(served["boots"])
+    got = R.logits_from_slots(rp, np.real(dec.decrypt(out)))
     err = float(np.abs(got - net["plain"]).max())
     post = ctx.base_limbs + (RESNET_LEVELS - 21) * ctx.rescale_limbs
+    n_cts = max([1] + [b["lout"].n_cts for b in rp.blocks])
     log(f"resnet: {image_s:.1f} s per image (1 image, the first: mask "
         f"encodings included); segments (s): "
         + ", ".join(f"{v:.1f}" for v in seg_s))
@@ -1129,7 +1345,7 @@ def resnet_phase(torch, timer, same) -> dict:
     log(f"resnet: logits argmax {np.argmax(got)} (plain "
         f"{np.argmax(net['plain'])}, float oracle {np.argmax(net['want'])}),"
         f" max |encrypted - plain| {err:.3e} (bound {ERR_BOUND_RESNET}); "
-        f"launches per image {launches}")
+        f"launches per request {launches}")
     check(got.shape == net["plain"].shape and np.isfinite(got).all(),
           "resnet: bad logits")
     check(np.argmax(got) == np.argmax(net["want"]) == np.argmax(net["plain"]),
@@ -1146,7 +1362,8 @@ def resnet_phase(torch, timer, same) -> dict:
 
     # Every kernel against its plain version at each shape that one
     # residual block (conv, refresh, ReLU, conv, add, refresh, ReLU) and its
-    # two bootstraps give it on this chain.
+    # two bootstraps give it on the server's backend.
+    segs, stem_out = served["segs"], served["stem_out"]
     t0 = time.perf_counter()
     shapes = hold_path_to_plain(lambda: segs[1](stem_out), same)
     torch.cuda.synchronize()
@@ -1182,8 +1399,16 @@ def resnet_phase(torch, timer, same) -> dict:
     for name, kms, cnt in prof["top"]:
         log(f"  {kms:.3f} ms  x{cnt:.0f}  {name}")
     return {"depth": rp.depth, "limbs": ctx.L, "plans_s": net["plans_s"],
-            "keygen_s": ses.keygen_s, "setup_s": setup_s,
-            "galois_keys": ses.galois_keys, "image_s": image_s,
+            "native": nat, "transport": way, "keygen_s": keygen_s,
+            "galois_keys": n_keys, "upload_frames": frames,
+            "upload_raw_bytes": ups["dump_"]["raw"],
+            "upload_wire_bytes": ups["dump_"]["wire"], "upload_s": upload_s,
+            "upload_serialize_s": ups["dump_"]["s"],
+            "upload_load_s": ups["load_"]["s"], "upload_rest_s": rest_s,
+            "request_s": request_s, "request_bytes": req[0]["wire"],
+            "response_bytes": response_bytes,
+            "request_serialize_s": [r["s"] for r in req],
+            "boot_plan_s": served["boot_plan_s"], "image_s": image_s,
             "segment_s": seg_s, "masks": net["masks"],
             "bootstraps": len(image_boots), "boot_s": boot_s,
             "boot_first_s": boot_s[0],
@@ -1194,6 +1419,86 @@ def resnet_phase(torch, timer, same) -> dict:
             "path_shapes": {k: len(v) for k, v in shapes.items()},
             "path_plain_s": plain_s, "block_profile": prof,
             "peak_bytes": peak, "phase_s": total_s}
+
+
+def pir_phase(torch) -> dict:
+    """Phase 7b: private embedding lookup of GPT-2 small's synthetic wte
+    (first PIR_ROWS rows, full width) served on the card, against the same
+    service on the CPU (see the module docstring)."""
+    from fhe_gpt2_tpu_torch.core import _cuda
+    from fhe_gpt2_tpu_torch.core.context import CkksContext, CkksParams
+    from fhe_gpt2_tpu_torch.core.evaluator import Decryptor, Encryptor, \
+        Evaluator
+    from fhe_gpt2_tpu_torch.core.keys import KeyGenerator
+    from fhe_gpt2_tpu_torch.net.pir import EmbeddingPIRServer, make_query
+    from fhe_gpt2_tpu_torch.nn.model import synthetic_weights
+    from fhe_gpt2_tpu_torch.run_gpt2 import GPT2_POSITIONS, GPT2_VOCAB
+
+    t_phase = time.perf_counter()
+    wte = synthetic_weights(np.random.default_rng(0), 0, PIR_WIDTH, 12,
+                            GPT2_VOCAB, GPT2_POSITIONS)[
+                                "transformer.wte.weight"]
+    table = wte[:PIR_ROWS]
+    params = CkksParams.create(logn=PIR_LOGN, log_q0=29, log_scale=25,
+                               num_levels=3, log_special=31, num_special=2,
+                               hamming_weight=64)
+    ctx = CkksContext(params)
+    slots = ctx.params.slots
+    check(slots == PIR_ROWS, f"{slots} slots for {PIR_ROWS} rows")
+    t0 = time.perf_counter()
+    srv = EmbeddingPIRServer(table, slots)
+    plan_s = time.perf_counter() - t0
+    kg = KeyGenerator(ctx, seed=1)
+    relin = kg.relin_key()
+    gk = kg.galois_keys(steps=srv.required_steps())
+    enc = Encryptor(ctx, secret=kg.secret, seed=2)
+    dec = Decryptor(ctx, kg.secret)
+    ev = Evaluator(ctx)
+    queries = [enc.encrypt(ev.make_plain(make_query(tok, PIR_ROWS, slots)[0],
+                                         params.scale, ctx.L))
+               for tok in PIR_TOKENS]
+    answers = {}
+    for device in ("cuda", "cpu"):
+        server, client = serve(lambda B, ct: srv.answer(B, [ct]), device)
+        try:
+            client.init_session_stream(params, relin_key=relin,
+                                       galois_keys=gk)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                _cuda.reset_launches()
+            t0 = time.perf_counter()
+            answers[device] = client.evaluate_stream(queries)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches = dict(_cuda.LAUNCHES)
+            answers[device + "_s"] = time.perf_counter() - t0
+        finally:
+            server.stop()
+    errs = []
+    for tok, c, p in zip(PIR_TOKENS, answers["cuda"], answers["cpu"]):
+        check(c.data.is_cuda and not p.data.is_cuda, "answers on the wrong "
+              "devices")
+        check(c.scale == p.scale and torch.equal(c.data.cpu(), p.data),
+              f"PIR answer for token {tok}: the card's != the CPU route's")
+        row = np.real(dec.decrypt(c))[:PIR_WIDTH]
+        check(row.shape == (PIR_WIDTH,) and np.isfinite(row).all(),
+              "PIR: bad answer")
+        errs.append(float(np.abs(row - table[tok]).max()))
+    log(f"pir: {PIR_ROWS} rows x {PIR_WIDTH} of GPT-2 small's synthetic wte, "
+        f"logN={ctx.logn} ({slots} slots, one query ciphertext), "
+        f"{len(srv.required_steps())} rotation keys, plan "
+        f"{plan_s:.1f} s; tokens {PIR_TOKENS} through evaluate_stream: "
+        f"card {answers['cuda_s']:.2f} s, CPU route {answers['cpu_s']:.2f} s "
+        f"(answers torch.equal); max |row - table| {max(errs):.2e} (bound "
+        f"{ERR_BOUND_PIR}); launches {launches}")
+    check(max(errs) < ERR_BOUND_PIR, f"PIR error {errs}")
+    for name in REPLACES:
+        check(launches[name] > 0, f"kernel {name} not launched by the PIR")
+    return {"rows": PIR_ROWS, "width": PIR_WIDTH, "logn": ctx.logn,
+            "tokens": PIR_TOKENS, "keys": len(srv.required_steps()),
+            "plan_s": plan_s, "card_s": answers["cuda_s"],
+            "cpu_s": answers["cpu_s"], "max_abs_err": errs,
+            "launches": launches, "phase_s": time.perf_counter() - t_phase}
 
 
 def plan_masks(*plans) -> int:

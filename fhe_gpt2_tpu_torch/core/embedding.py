@@ -1,10 +1,15 @@
-"""Canonical-embedding encode/decode (host side, numpy float64).
+"""Canonical-embedding encode/decode (host side, float64).
 
-The port's own copy of the numpy path of ``fhe_gpt2_tpu/core/embedding.py``.
-The evaluation network is the same butterfly graph as the NTT
-(core/ntt.py) over C with ζ = exp(iπ/n), so slot j holds m(ζ^{5^j mod 2n})
-in exactly the NTT's slot order. ``Evaluator._encode`` reduces the rounded
-coefficients modulo each limb on the context's device.
+The port's copy of ``fhe_gpt2_tpu/core/embedding.py``. The evaluation
+network is the same butterfly graph as the NTT (core/ntt.py) over C with
+ζ = exp(iπ/n), so slot j holds m(ζ^{5^j mod 2n}) in exactly the NTT's slot
+order. ``Evaluator._encode`` reduces the rounded coefficients modulo each
+limb on the context's device.
+
+As in the JAX package, the host transform of ``encode_to_coeffs`` and the
+CRT composition of ``decode`` run in the native runtime
+(``runtime/native.py``) whenever it is available, and in numpy otherwise;
+the two routes give the same words.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from functools import lru_cache
 
 import numpy as np
 
+from ..runtime import native
 from .ntt import bit_reverse
 
 
@@ -65,7 +71,9 @@ def coeff_transform(x: np.ndarray) -> np.ndarray:
 
 def encode_to_coeffs(values: np.ndarray, scale: float, ctx) -> np.ndarray:
     """Complex slot values -> rounded integer coefficients (int64, centered).
-    Fewer than n/2 values are replicated cyclically (sparse slots)."""
+    Fewer than n/2 values are replicated cyclically (sparse slots). The
+    transform runs natively when the runtime is available; np.round and the
+    runtime's nearbyint both round half to even."""
     slots = ctx.n // 2
     values = np.asarray(values, dtype=np.complex128).ravel()
     if len(values) < slots:
@@ -75,8 +83,10 @@ def encode_to_coeffs(values: np.ndarray, scale: float, ctx) -> np.ndarray:
     evals = np.zeros(ctx.n, dtype=np.complex128)
     evals[ctx.slot_to_index] = values * scale
     evals[ctx.conj_slot_to_index] = np.conj(values) * scale
-    coeffs = coeff_transform(evals)
-    c = np.round(np.real(coeffs))
+    if native.available():
+        c = np.round(native.coeff_transform(evals))
+    else:
+        c = np.round(np.real(coeff_transform(evals)))
     if np.max(np.abs(c)) >= 2 ** 62:
         raise ValueError("encoded coefficient too large for int64 path")
     return c.astype(np.int64)
@@ -107,8 +117,20 @@ def rns_to_centered_ints(res: np.ndarray, ctx, limbs) -> np.ndarray:
 
 def decode(res: np.ndarray, scale: float, ctx, limbs, num_slots=None) -> np.ndarray:
     """uint32 RNS coefficients -> complex slot values."""
-    centered = rns_to_centered_ints(res, ctx, limbs)
-    coeffs = centered.astype(np.float64) / scale
+    if native.available():
+        # The limbs a 240-bit magnitude bound needs, as rns_to_centered_ints
+        # takes them.
+        rows, prod = [], 1
+        for row, li in enumerate(limbs):
+            rows.append(row)
+            prod *= ctx.all_moduli[li]
+            if prod.bit_length() > 240:
+                break
+        coeffs = native.crt_compose(
+            res[rows], [ctx.all_moduli[limbs[r]] for r in rows], scale)
+    else:
+        centered = rns_to_centered_ints(res, ctx, limbs)
+        coeffs = centered.astype(np.float64) / scale
     evals = eval_transform(coeffs)
     z = evals[ctx.slot_to_index]
     if num_slots is not None and num_slots < len(z):

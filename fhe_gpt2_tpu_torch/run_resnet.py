@@ -222,6 +222,48 @@ class Session:
     galois_keys: int
 
 
+def make_params(a):
+    """The CKKS parameter set of the flags (composite, w32 or u64)."""
+    from .core.context import CkksParams
+    ss = a.data_slots if a.data_slots else 0
+    if a.composite:
+        return CkksParams.create_composite(
+            logn=a.logn, num_levels=a.levels, log_scale=a.log_scale,
+            log_q0=a.log_scale + 5,
+            log_special=31, num_special=a.nsp, hamming_weight=a.hamming,
+            sparse_slots=ss)
+    if a.word == 32:
+        return CkksParams.create(
+            logn=a.logn, log_q0=29, log_scale=25, num_levels=a.levels,
+            log_special=31, num_special=a.nsp, hamming_weight=a.hamming,
+            sparse_slots=ss)
+    return CkksParams.create(
+        logn=a.logn, log_q0=51, log_scale=46, num_levels=a.levels,
+        log_special=51, num_special=a.nsp, hamming_weight=a.hamming,
+        sparse_slots=ss)
+
+
+def input_level(a, ctx) -> int:
+    """The limbs the inputs are encrypted at: the chain top, or
+    --start-level logical levels above the bootstrap base."""
+    if a.start_level:
+        return ctx.base_limbs + a.start_level * ctx.rescale_limbs
+    return len(ctx.params.moduli) if a.composite else a.levels
+
+
+def make_bootstrapper(a, B):
+    """The real Bootstrapper of the flags over backend B. The EvalMod
+    window: eps is the actual Δ/q0 of the parameter set; K covers the
+    ModRaise overshoot of the h-sparse secret (infer_seal.cpp:287-322: K=25
+    for h=192)."""
+    from .boot.bootstrap import Bootstrapper, make_evalmod
+    eps = B.ctx.params.scale / B.ctx.q0_float
+    em = make_evalmod(K=a.boot_K, eps=max(eps * 1.05, 2 ** -5),
+                      degree=a.boot_degree, arcsin_degree=3, prec_dps=80)
+    return Bootstrapper(B, evalmod=em, cts_factors=a.boot_factors,
+                        stc_factors=a.boot_factors)
+
+
 def build_session(a, rp, img) -> Session:
     """Context, keys, backend and Bootstrapper of an encrypted run, on the
     device of ``device_of(a)``. The rotation set is recorded from one
@@ -230,7 +272,7 @@ def build_session(a, rp, img) -> Session:
     import torch
 
     from .cnn import resnet as R
-    from .core.context import CkksContext, CkksParams
+    from .core.context import CkksContext
     from .core.evaluator import Decryptor, Encryptor, Evaluator
     from .core.keys import KeyGenerator
     from .nn.backend import CkksBackend, RecordingBackend
@@ -239,28 +281,10 @@ def build_session(a, rp, img) -> Session:
     rec = RecordingBackend(rp.slots)
     R.forward(rec, R.pack_input(rp, img), rp, boot_between=False)
     _log("rotation recording done")
-    ss = a.data_slots if a.data_slots else 0
-    if a.composite:
-        params = CkksParams.create_composite(
-            logn=a.logn, num_levels=a.levels, log_scale=a.log_scale,
-            log_q0=a.log_scale + 5,
-            log_special=31, num_special=a.nsp, hamming_weight=a.hamming,
-            sparse_slots=ss)
-    elif a.word == 32:
-        params = CkksParams.create(
-            logn=a.logn, log_q0=29, log_scale=25, num_levels=a.levels,
-            log_special=31, num_special=a.nsp, hamming_weight=a.hamming,
-            sparse_slots=ss)
-    else:
-        params = CkksParams.create(
-            logn=a.logn, log_q0=51, log_scale=46, num_levels=a.levels,
-            log_special=51, num_special=a.nsp, hamming_weight=a.hamming,
-            sparse_slots=ss)
+    params = make_params(a)
     ctx = CkksContext(params, device=device)
     _log(f"context built: {ctx.L} limbs + {ctx.k_sp} special on {device}")
-    lvl = len(params.moduli) if a.composite else a.levels
-    if a.start_level:
-        lvl = ctx.base_limbs + a.start_level * ctx.rescale_limbs
+    lvl = input_level(a, ctx)
     t_keys = time.time()
     kg = KeyGenerator(ctx, seed=1)
     ev = Evaluator(ctx, relin_key=kg.relin_key())
@@ -273,15 +297,7 @@ def build_session(a, rp, img) -> Session:
     _log("relin key done")
     steps = set(rec.key_steps())
     if a.real_boot:
-        from .boot.bootstrap import Bootstrapper, make_evalmod
-        # EvalMod window: eps is the actual Δ/q0 of the parameter set; K
-        # covers the ModRaise overshoot of the h-sparse secret
-        # (infer_seal.cpp:287-322: K=25 for h=192).
-        eps = params.scale / ctx.q0_float
-        em = make_evalmod(K=a.boot_K, eps=max(eps * 1.05, 2 ** -5),
-                          degree=a.boot_degree, arcsin_degree=3, prec_dps=80)
-        B.boot = Bootstrapper(B, evalmod=em, cts_factors=a.boot_factors,
-                              stc_factors=a.boot_factors)
+        B.boot = make_bootstrapper(a, B)
         steps.update(B.boot.required_steps())
     if a.digit_keys:
         # Base-16 digit set only: every rotation, model and bootstrap,

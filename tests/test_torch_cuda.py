@@ -570,3 +570,112 @@ def test_gpt2_block_on_card_equals_cpu(cuda):
         assert torch.equal(g.data.cpu(), r.data)
     hidden = m.sh.act.unpack(np.stack([B.to_slots(o) for o in got]))
     assert np.abs(hidden - plain).max() < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# The serving slice: the wire format onto the card, the native encoder on the
+# card's host, and the service's handlers on the card
+# ---------------------------------------------------------------------------
+
+def _served_session(dev):
+    """Keys, a ciphertext and its Galois steps at logN=11 (uint32, 3
+    levels) on one device."""
+    ctx = CkksContext(CkksParams.create(
+        logn=11, log_q0=29, log_scale=25, num_levels=3, log_special=31,
+        num_special=2, hamming_weight=16), device=dev)
+    kg = KeyGenerator(ctx, seed=2)
+    ev = Evaluator(ctx, relin_key=kg.relin_key(),
+                   galois_keys=kg.galois_keys([1, 5], conjugate=True))
+    enc = Encryptor(ctx, secret=kg.secret, seed=3)
+    z = np.random.default_rng(1).uniform(-1, 1, ctx.params.slots)
+    return ctx, ev, enc.encrypt(ev.make_plain(z, ctx.params.scale, ctx.L)), \
+        Decryptor(ctx, kg.secret), z
+
+
+def test_serialize_roundtrips_onto_the_card(cuda):
+    """Blobs of card tensors load onto the card and onto the CPU with the
+    same words; the seeded form re-expands on the card."""
+    from fhe_gpt2_tpu_torch.net import serialize as S
+    ctx, ev, ct, dec, z = _served_session(cuda)
+    blob = S.dump_ciphertext(ct)
+    for dev in (None, cuda, "cpu"):
+        back = S.load_ciphertext(blob, dev)
+        assert back.data.device.type == ("cpu" if dev == "cpu" else "cuda")
+        assert back.scale == ct.scale
+        assert torch.equal(back.data.cpu(), ct.data.cpu())
+    rk = S.load_kswitch_key(S.dump_kswitch_key(ev.relin_key), cuda)
+    assert rk.data.is_cuda and torch.equal(rk.data, ev.relin_key.data)
+    gk = S.load_galois_keys(S.dump_galois_keys(ev.galois_keys), cuda)
+    assert set(gk.keys) == set(ev.galois_keys.keys)
+    for e, k in gk.keys.items():
+        assert torch.equal(k.data, ev.galois_keys.keys[e].data)
+    elt = sorted(ev.galois_keys.keys)[0]
+    e, k = S.load_galois_elt(S.dump_galois_elt(elt, ev.galois_keys[elt]),
+                             cuda)
+    assert e == elt and torch.equal(k.data, ev.galois_keys[elt].data)
+    assert S.load_params(S.dump_params(ctx.params)) == ctx.params
+    enc = Encryptor(ctx, secret=dec.secret, seed=4)
+    sct, seed = enc.encrypt_symmetric_seeded(ev.make_plain(
+        z, ctx.params.scale, ctx.L))
+    back = S.load_ciphertext_seeded(S.dump_ciphertext_seeded(sct, seed), ctx)
+    assert back.data.is_cuda and torch.equal(back.data, sct.data)
+    assert np.abs(np.real(dec.decrypt(back)) - z).max() < 1e-3
+
+
+@pytest.mark.parametrize("kind", ["uniform", "zero_one"])
+def test_native_encoder_on_the_card_host_equals_numpy(cuda, kind,
+                                                      monkeypatch):
+    """On the card's host the native transform gives numpy's coefficients
+    at logN=15, Δ = 2^54; the residues the card reduces are the same, and
+    the decodes agree."""
+    from fhe_gpt2_tpu_torch.core import embedding
+    from fhe_gpt2_tpu_torch.runtime import native
+    assert native.available()
+    ctx = CkksContext(CkksParams.create_composite(
+        logn=15, num_levels=2, log_scale=54, log_q0=59, num_special=2,
+        hamming_weight=16), device=cuda)
+    rng = np.random.default_rng(6)
+    z = (rng.uniform(-1, 1, ctx.params.slots) if kind == "uniform"
+         else rng.integers(0, 2, ctx.params.slots) * 1.0)
+    t = ctx.tables(ctx.L)
+    ev = Evaluator(ctx)
+    got = ev._encode(z, ctx.params.scale, t)
+    res = got.cpu().numpy().view(np.uint32)
+    dec_native = embedding.decode(res, ctx.params.scale, ctx,
+                                  tuple(range(ctx.L)))
+    with monkeypatch.context() as m:
+        m.setattr(native, "available", lambda: False)
+        want = ev._encode(z, ctx.params.scale, t)
+        dec_numpy = embedding.decode(res, ctx.params.scale, ctx,
+                                     tuple(range(ctx.L)))
+    assert torch.equal(got, want)
+    assert np.abs(dec_native - dec_numpy).max() < 1e-12
+    assert np.abs(dec_native - z).max() < 1e-9
+
+
+def test_service_handlers_on_the_card_equal_cpu(cuda):
+    """The server's handlers on the card and on the CPU, fed the same
+    frames: the same answer words, on the server's own device."""
+    from fhe_gpt2_tpu_torch.net import serialize as S
+    from fhe_gpt2_tpu_torch.net.service import SecureInferenceServer
+    ctx, ev, ct, dec, z = _served_session(cuda)
+    frames = [S.dump_params(ctx.params), S.dump_kswitch_key(ev.relin_key)]
+    frames += [S.dump_galois_elt(e, k)
+               for e, k in sorted(ev.galois_keys.keys.items())]
+
+    def model(B, c):
+        assert B.enc is None and B.dec is None
+        return B.add(B.square(c), B.rotate(c, 5))
+
+    answers = {}
+    for dev in (cuda, "cpu"):
+        server = SecureInferenceServer(model_fn=model, device=dev)
+        assert server._init_session_stream(iter(frames), None) == b"ok"
+        [blob] = server._evaluate_stream(iter([S.dump_ciphertext(ct)]), None)
+        assert server._state["backend"].ctx.device.type == \
+            torch.device(dev).type
+        answers[str(dev)] = S.load_ciphertext(blob, "cpu")
+    a, b = answers.values()
+    assert a.scale == b.scale and torch.equal(a.data, b.data)
+    got = np.real(dec.decrypt(S.load_ciphertext(S.dump_ciphertext(a), cuda)))
+    assert np.abs(got - (z * z + np.roll(z, -5))).max() < 1e-2
