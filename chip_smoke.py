@@ -102,7 +102,27 @@ Phases (any failed check exits non-zero and prints no result):
              of 32 ciphertexts); then seconds per block, mask encodings,
              launches per block, the attention's device ms, kernels and idle
              share from torch.profiler, and peak memory;
-  9. report  one JSON line of kernels, the card's name and power limit, and
+  9. u64     the u64 engine (int64 words, plain PyTorch ops on the card; it
+             has no kernel): SEAL's vectors (tests/data/seal_vectors.bin)
+             through the port on the card, square+relin+rescale and
+             rotate-by-1 equal to SEAL's coefficient dumps word for word;
+             the reference's GPT-2 regime gpt2_params() (logN=16, 36 limbs,
+             one 60-bit special prime, h=192): keygen (relin, Galois steps
+             1/4 and conjugation, public key), then requests as phase 3's
+             (the second by public key), every tensor on the card, each
+             output within ERR_BOUND_U64, and the four kernels launched no
+             time (counts zeroed just before, read just after); then ms per
+             multiply+relin, rescale and rotate and of the NTT and iNTT at
+             [36, N] and [36, 37, N] (CUDA events, median of 3), device ms,
+             kernels, top kernels and idle share of one multiply+relin from
+             torch.profiler, keygen seconds and peak memory; one request
+             (multiply+relin+rescale+rotate) at test_params(12, 6)
+             torch.equal to the CPU route with keys from the same seeds;
+             a u64 bootstrap at test_full_bootstrap's parameters (logN=10,
+             22 levels, q0 45 bits, Δ=2^40, h=16, 64 slots, EvalMod K=12 /
+             degree 45 from the port's cache) within that test's bounds
+             (mean < 1e-2, max < 5e-2), output level >= 4, and its seconds;
+  10. report one JSON line of kernels, the card's name and power limit, and
              the last line {"ok": true, "device": {...}}.
 
 It imports the port only, never jax or fhe_gpt2_tpu. Without a CUDA device,
@@ -174,6 +194,15 @@ GPT2_ARGS = ["--layers", "1", "--seq", "16", "--hidden", "768", "--heads",
 ERR_BOUND_GPT2_FLOAT = 0.01   # phase 8: max |plain - float oracle| hidden
 ERR_BOUND_GPT2 = 1e-4     # phase 8: max |encrypted - plain| hidden (PERF.md,
                           # the prediction written before the first card run)
+U64_REQUESTS = 2          # phase 9: the second one encrypts by public key
+ERR_BOUND_U64 = 1e-6      # phase 9: decrypt max abs error at Δ=2^46 (the JAX
+                          # budgets imply ~1e-9; a broken op gives O(1))
+U64_EQUAL = (12, 6)       # phase 9: test_params(logN, levels) held card = CPU
+# phase 9's u64 bootstrap: tests/test_bootstrap.py::test_full_bootstrap's
+# parameters (q0/Δ = 2^5 as the reference regime) and its bounds.
+U64_BOOT = dict(logn=10, log_q0=45, log_scale=40, num_levels=22,
+                log_special=51, hamming_weight=16, sparse_slots=64)
+ERR_BOUND_U64_BOOT = (1e-2, 5e-2)   # mean, max abs error
 
 REPLACES = {
     "ntt_fwd": "fhe_gpt2_tpu/core/tntt.py:250",
@@ -182,6 +211,8 @@ REPLACES = {
     "moddown": "fhe_gpt2_tpu/core/tks.py:157",
 }
 SPIN_CYCLES = 100_000     # profile_chain's marker kernel (~0.05 ms)
+TRACE_ATTEMPTS = 3        # profile_chain: traces taken before a lost event
+                          # (an incomplete trace) fails the run
 PLAIN_CHUNK_BYTES = 1 << 27   # hold_path_to_plain: larger outputs are held
                               # row by row (the plain key switch widens its
                               # 788 MB output over the GPT-2 Δ batch at 80
@@ -235,22 +266,51 @@ def profile_chain(torch, fn, reps: int, warm: bool = True,
                   pad=None) -> dict:
     """Device time per call of fn, device kernels per call and the top
     kernels by device time, from torch.profiler over reps calls, after one
-    warm-up call (warm=False: the caller has just run fn). Fails when the
-    trace holds fewer (or more) of the port's kernels than the wrappers
-    launched in those calls (``_cuda.LAUNCHES``): a trace that lost events
-    would understate the device time. ``pad`` (default: fn) is called at
-    the start of the trace, before the counted calls."""
-    from torch.profiler import ProfilerActivity, profile
-    from fhe_gpt2_tpu_torch.core import _cuda
+    warm-up call (warm=False: the caller has just run fn). A trace must
+    hold the spin kernel that marks the counted calls and as many of the
+    port's kernels as the wrappers launched in those calls
+    (``_cuda.LAUNCHES``): a trace that lost events would understate the
+    device time. An incomplete trace is taken again, up to TRACE_ATTEMPTS
+    traces in all; then the run fails. ``pad`` (default: fn) is called at
+    the start of each trace, before the counted calls."""
     if warm:
         fn()
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        kern, traced, launched, lost = _trace(torch, fn, reps, pad)
+        if not lost:
+            break
+        log(f"  torch.profiler: {lost} (trace {attempt} of "
+            f"{TRACE_ATTEMPTS})")
+    check(not lost, f"torch.profiler: {lost} in {TRACE_ATTEMPTS} traces")
+    by_name: dict = {}
+    for e in kern:
+        us, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
+    busy_us = sum(us for us, _ in by_name.values())
+    check(busy_us > 0, "torch.profiler recorded no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"device_ms": busy_us / 1e3 / reps,
+            "launches": len(kern) / reps,
+            "port_launches": {k: v / reps for k, v in traced.items()},
+            "top": [(name[:70], us / 1e3 / reps, count / reps)
+                    for name, (us, count) in top]}
+
+
+def _trace(torch, fn, reps: int, pad):
+    """One torch.profiler trace of pad (default fn), the spin marker and
+    reps calls of fn: (device events after the marker, the port's kernels
+    among them, the wrappers' launches in the counted calls, what the trace
+    lost: "" when it is complete)."""
+    from torch.profiler import ProfilerActivity, profile
+    from fhe_gpt2_tpu_torch.core import _cuda
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         # The tracer can drop the first device events of a trace (on the
         # H100 it dropped up to six kernels, the first after a long
-        # untraced run): one more call of fn (or pad) pads the start, and a
-        # spin kernel marks where the counted calls begin.
+        # untraced run, and once the marker itself): one more call of fn
+        # (or pad) pads the start, and a spin kernel marks where the
+        # counted calls begin.
         (pad or fn)()
         torch.cuda.synchronize()
         torch.cuda._sleep(SPIN_CYCLES)
@@ -268,8 +328,9 @@ def profile_chain(torch, fn, reps: int, warm: bool = True,
                      and not e.name.startswith("ProfilerStep")),
                     key=lambda e: e.time_range.start)
     marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
-    check(len(marks) == 1, f"torch.profiler traced {len(marks)} spin "
-          f"kernels where one marks the counted calls")
+    if len(marks) != 1:
+        return [], {}, launched, (f"traced {len(marks)} spin kernels where "
+                                  f"one marks the counted calls")
     kern = events[marks[0] + 1:]
     traced = {k: sum(name in e.name for e in kern)
               for k, name in KERNEL_NAMES.items()}
@@ -277,21 +338,10 @@ def profile_chain(torch, fn, reps: int, warm: bool = True,
         for e in events[:400]:
             log(f"  traced: {e.time_range.start:.1f} us "
                 f"{e.time_range.elapsed_us():.1f} us {e.name[:100]}")
-    check(traced == launched, f"torch.profiler traced {traced} of the port's "
-          f"kernels where the wrappers launched {launched}: the trace is "
-          f"incomplete")
-    by_name: dict = {}
-    for e in kern:
-        us, count = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
-    busy_us = sum(us for us, _ in by_name.values())
-    check(busy_us > 0, "torch.profiler recorded no device time")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    return {"device_ms": busy_us / 1e3 / reps,
-            "launches": len(kern) / reps,
-            "port_launches": {k: v / reps for k, v in traced.items()},
-            "top": [(name[:70], us / 1e3 / reps, count / reps)
-                    for name, (us, count) in top]}
+        return kern, traced, launched, (
+            f"traced {traced} of the port's kernels where the wrappers "
+            f"launched {launched}: the trace is incomplete")
+    return kern, traced, launched, ""
 
 
 def kernels_per_call(torch, fn) -> int:
@@ -683,7 +733,12 @@ def run() -> dict:
     for name in REPLACES:
         kern[name]["launches_per_gpt2_block"] = gpt["block_launches"][name]
 
-    # -- 9. report ----------------------------------------------------------------
+    # -- 9. u64 ----------------------------------------------------------------
+    result["phases"]["u64"] = u64 = u64_phase(torch, timer)
+    for name in REPLACES:
+        kern[name]["launches_u64"] = u64["launches"][name]
+
+    # -- 10. report ---------------------------------------------------------------
     rows = []
     for name in REPLACES:
         k = kern[name]
@@ -695,6 +750,7 @@ def run() -> dict:
                      "launches_per_pir_request":
                          k["launches_per_pir_request"],
                      "launches_per_gpt2_block": k["launches_per_gpt2_block"],
+                     "launches_u64": k["launches_u64"],
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": None,
@@ -1723,6 +1779,222 @@ def gpt2_phase(torch, same) -> dict:
             "path_shapes": {k: len(v) for k, v in shapes.items()},
             "path_plain_s": hold_s, "attn_profile": prof, "peak_bytes": peak,
             "phase_s": total_s}
+
+
+def median_ms(torch, timer, fn) -> tuple[float, list]:
+    """Median of 3 single calls by CUDA events, after one warm-up call."""
+    fn()
+    runs = [timer(fn, iters=1, warmup=0) for _ in range(3)]
+    return float(np.median(runs)), runs
+
+
+def u64_phase(torch, timer) -> dict:
+    """Phase 9: the u64 engine on the card (int64 words, no kernel)."""
+    from fhe_gpt2_tpu_torch.boot.bootstrap import Bootstrapper, \
+        evalmod_cache_path, make_evalmod
+    from fhe_gpt2_tpu_torch.core import _cuda, ntt as nttmod
+    from fhe_gpt2_tpu_torch.core.context import CkksContext, CkksParams, \
+        gpt2_params, test_params
+    from fhe_gpt2_tpu_torch.core.evaluator import Decryptor, Encryptor, \
+        Evaluator
+    from fhe_gpt2_tpu_torch.core.keys import KeyGenerator
+    from fhe_gpt2_tpu_torch.nn.backend import CkksBackend
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_seal_common import seal_session, to_coeff
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    _cuda.reset_launches()
+
+    # SEAL's vectors on the card.
+    v, sctx, sev, sdec, load_ct, sL = seal_session("cuda")
+    ct = load_ct("ct_in", sL)
+    sq = sev.rescale(sev.square(ct))
+    rot = sev.rotate(ct, 1)
+    check(sq.data.is_cuda and sq.data.dtype == torch.int64,
+          "SEAL: the square is not an int64 tensor on the card")
+    check(np.array_equal(to_coeff(sctx, sq.data, sL - 1),
+                         np.stack([v["ct_sq_c0"], v["ct_sq_c1"]])),
+          "SEAL: square+relin+rescale on the card differs from SEAL")
+    check(np.array_equal(sdec.decrypt_to_rns(sq), v["plain_sq"]),
+          "SEAL: decryption of the square differs from SEAL")
+    check(np.array_equal(to_coeff(sctx, rot.data, sL),
+                         np.stack([v["ct_rot_c0"], v["ct_rot_c1"]])),
+          "SEAL: rotate by 1 on the card differs from SEAL")
+    check(np.array_equal(sdec.decrypt_to_rns(rot), v["plain_rot"]),
+          "SEAL: decryption of the rotation differs from SEAL")
+    log(f"u64: SEAL vectors (N={sctx.n}, {sL}+1 limbs) square+relin+rescale "
+        f"and rotate-by-1 on the card equal to SEAL's dumps word for word")
+    del v, sctx, sev, sdec, load_ct, ct, sq, rot
+
+    # The unit op at the reference's GPT-2 regime.
+    t0 = time.perf_counter()
+    params = gpt2_params()
+    ctx = CkksContext(params)
+    L = ctx.L
+    ctx_s = time.perf_counter() - t0
+    check(ctx.dtype == torch.int64 and ctx.ntt_all.q.is_cuda,
+          "gpt2_params: the context is not int64 on the card")
+    t0 = time.perf_counter()
+    kg = KeyGenerator(ctx, seed=1)
+    relin = kg.relin_key()
+    gk = kg.galois_keys(steps=[1, 4], conjugate=True)
+    pk = kg.public_key()
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    key_bytes = relin.data.numel() * relin.data.element_size()
+    ev = Evaluator(ctx, relin_key=relin, galois_keys=gk)
+    enc = Encryptor(ctx, secret=kg.secret, seed=2)
+    enc_pk = Encryptor(ctx, public=pk, seed=3)
+    dec = Decryptor(ctx, kg.secret)
+    check(ev._hops(5) == [4, 1], f"rotate 5 hops {ev._hops(5)}")
+    log(f"u64: gpt2_params logN={ctx.logn}, {L} limbs + {ctx.k_sp} special "
+        f"({ctx.num_digits(L)} digits), h={params.hamming_weight}; context "
+        f"{ctx_s:.1f} s, keygen {keygen_s:.1f} s (relin, "
+        f"{len(gk.keys)} Galois, public; a key is "
+        f"{list(relin.data.shape)} int64 = {key_bytes / 2 ** 30:.2f} GiB)")
+    drng = np.random.default_rng(0)
+    errs = {}
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    for r in range(U64_REQUESTS):
+        z = drng.uniform(-1, 1, ctx.params.slots)
+        e = enc_pk if r == U64_REQUESTS - 1 else enc
+        ct = e.encrypt(ev.make_plain(z, params.scale, L))
+        mul = ev.multiply(ct, ct)
+        outs = {"encrypt": (ct, z), "mul_relin": (mul, z * z),
+                "rescale": (ev.rescale(mul), z * z),
+                "rotate5": (ev.rotate(ct, 5), np.roll(z, -5)),
+                "conjugate": (ev.conjugate(ct), z)}
+        for what, (o, want) in outs.items():
+            check(o.data.is_cuda and o.data.dtype == torch.int64,
+                  f"u64 request {r} {what}: not an int64 tensor on the card")
+            got = dec.decrypt(o)
+            check(got.shape == want.shape and np.isfinite(got).all(),
+                  f"u64 request {r} {what}: bad output")
+            key = ("pk_" if e is enc_pk else "") + what
+            errs[key] = max(errs.get(key, 0.0),
+                            float(np.max(np.abs(got - want))))
+    torch.cuda.synchronize()
+    req_s = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    log(f"u64: {U64_REQUESTS} requests {req_s:.1f} s; kernel launches "
+        f"{launches}")
+    for what, err in sorted(errs.items()):
+        log(f"  decrypt {what}: max abs err {err:.3e} (bound {ERR_BOUND_U64})")
+        check(err <= ERR_BOUND_U64, f"u64 {what}: error {err}")
+    check(all(n == 0 for n in launches.values()),
+          f"the u64 route launched a kernel: {launches}")
+
+    ms = {}
+    ms["mul_relin"], runs = median_ms(torch, timer,
+                                      lambda: ev.multiply(ct, ct))
+    mul = ev.multiply(ct, ct)
+    ms["rescale"], _ = median_ms(torch, timer, lambda: ev.rescale(mul))
+    ms["rotate1"], _ = median_ms(torch, timer, lambda: ev.rotate(ct, 1))
+    t_key = ctx.tables(ctx.key_limbs(L))
+    x1 = ct.data[1].contiguous()                                # [L, N]
+    x2 = x1[None].expand(L, L, ctx.n).contiguous()
+    x2 = torch.cat([x2, x2[:, :1]], dim=1)                     # [L, L+1, N]
+    for name, x, t in ((f"ntt_{L}", x1, ctx.tables(L)),
+                       (f"ntt_{L}x{L + 1}", x2, t_key)):
+        ms[name], _ = median_ms(torch, timer, lambda: nttmod.ntt(x, t))
+        ms["i" + name], _ = median_ms(torch, timer,
+                                      lambda: nttmod.intt(x, t))
+    del x2
+    prof = profile_chain(torch, lambda: ev.multiply(ct, ct), reps=1)
+    prof["idle_share"] = 1.0 - prof["device_ms"] / ms["mul_relin"]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"u64: ms (CUDA events, median of 3): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in ms.items())
+        + f"; multiply+relin runs {[round(r, 1) for r in runs]}")
+    log(f"u64: profile multiply+relin: device {prof['device_ms']:.1f} ms of "
+        f"{ms['mul_relin']:.1f} ms (device idle "
+        f"{100 * prof['idle_share']:.1f}%), {prof['launches']:.0f} torch "
+        f"kernels; peak memory {peak / 2 ** 30:.2f} GiB")
+    for name, kms, cnt in prof["top"]:
+        log(f"  {kms:.3f} ms  x{cnt:.0f}  {name}")
+    del ev, enc, enc_pk, dec, kg, relin, gk, pk, ct, mul, outs, t_key, x1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The card route against the CPU route at test_params(12, 6).
+    t0 = time.perf_counter()
+    p_eq = test_params(*U64_EQUAL)
+    sides = {}
+    for dev in ("cuda", "cpu"):
+        c = CkksContext(p_eq, device=dev)
+        k = KeyGenerator(c, seed=5)
+        e = Evaluator(c, relin_key=k.relin_key(),
+                      galois_keys=k.galois_keys([1]))
+        z = np.random.default_rng(6).uniform(-1, 1, c.params.slots)
+        x = Encryptor(c, secret=k.secret, seed=7).encrypt(
+            e.make_plain(z, p_eq.scale, c.L))
+        sides[dev] = e.rotate(e.rescale(e.multiply(x, x)), 1).data
+    check(sides["cuda"].is_cuda and torch.equal(sides["cuda"].cpu(),
+                                                sides["cpu"]),
+          "u64: multiply+relin+rescale+rotate on the card != the CPU route")
+    equal_s = time.perf_counter() - t0
+    log(f"u64: test_params{U64_EQUAL} multiply+relin+rescale+rotate on the "
+        f"card torch.equal to the CPU route ({equal_s:.1f} s)")
+
+    # A u64 bootstrap at test_full_bootstrap's parameters.
+    t0 = time.perf_counter()
+    bparams = CkksParams.create(**U64_BOOT)
+    bctx = CkksContext(bparams)
+    bkg = KeyGenerator(bctx, seed=3)
+    bev = Evaluator(bctx, relin_key=bkg.relin_key())
+    benc = Encryptor(bctx, secret=bkg.secret, seed=4)
+    bdec = Decryptor(bctx, bkg.secret)
+    B = CkksBackend(ctx=bctx, ev=bev, enc=benc, dec=None,
+                    default_level=bctx.L)
+    eps = bparams.scale / bctx.q0_float
+    em_kw = dict(K=12, eps=max(eps * 1.05, 2 ** -5), degree=45,
+                 arcsin_degree=3, prec_dps=60)
+    cache = evalmod_cache_path(num_double=2, **em_kw)
+    check(Path(cache).exists(), f"EvalMod coefficients missing: {cache}")
+    ns = U64_BOOT["sparse_slots"]
+    boot = Bootstrapper(B, num_slots=ns, evalmod=make_evalmod(**em_kw))
+    bev.galois_keys = bkg.galois_keys(steps=boot.required_steps(),
+                                      conjugate=True)
+    torch.cuda.synchronize()
+    boot_setup_s = time.perf_counter() - t0
+    z = np.random.default_rng(5).uniform(-1, 1, ns)
+    bct = benc.encrypt(bev.make_plain(z, bparams.scale, 1))
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    out = boot.bootstrap(bct)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    check(all(n == 0 for n in _cuda.LAUNCHES.values()),
+          f"the u64 bootstrap launched a kernel: {dict(_cuda.LAUNCHES)}")
+    back = np.real(bdec.decrypt(out, num_slots=ns))
+    check(back.shape == z.shape and np.isfinite(back).all(),
+          "u64 bootstrap: bad output")
+    berr = np.abs(back - z)
+    log(f"u64: bootstrap logN={bctx.logn}, {bctx.L} limbs, {ns} slots: level "
+        f"{bct.level} -> {out.level}, mean abs err {berr.mean():.3e}, max "
+        f"{berr.max():.3e} (bounds {ERR_BOUND_U64_BOOT}); {boot_s:.2f} s "
+        f"(first run, masks encoded), set-up and keygen {boot_setup_s:.1f} s")
+    check(berr.mean() < ERR_BOUND_U64_BOOT[0]
+          and berr.max() < ERR_BOUND_U64_BOOT[1],
+          f"u64 bootstrap error mean {berr.mean()} max {berr.max()}")
+    check(out.level >= 4, f"u64 bootstrap output level {out.level}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"u64: phase {phase_s:.1f} s")
+    return {"limbs": L, "keygen_s": keygen_s, "context_s": ctx_s,
+            "requests": U64_REQUESTS, "requests_s": req_s,
+            "max_abs_err": errs, "launches": launches, "ms": ms,
+            "mul_relin_runs": runs, "profile": prof, "peak_bytes": peak,
+            "equal_s": equal_s, "boot_s": boot_s,
+            "boot_setup_s": boot_setup_s,
+            "boot_mean_abs_err": float(berr.mean()),
+            "boot_max_abs_err": float(berr.max()), "boot_level": out.level,
+            "phase_s": phase_s}
 
 
 def main() -> int:

@@ -2,18 +2,23 @@
 
 A second package beside the JAX one, with the same module layout and public
 names, so each module here has its counterpart under ``fhe_gpt2_tpu/``
-(``core/``, ``approx/``, ``nn/``, ``boot/``, ``cnn/``, ``run_resnet.py``).
+(``core/``, ``approx/``, ``nn/``, ``boot/``, ``cnn/``, ``net/``,
+``utils/``, ``run_resnet.py``, ``run_gpt2.py``).
 It imports ``torch`` and numpy, never ``jax`` and nothing of ``fhe_gpt2_tpu``.
 
 Conventions:
-  * Residues are ``torch.int32`` tensors: every modulus is below 2**31, so a
-    canonical residue in [0, q) fits without a sign. Shoup and Barrett
-    constants (which may reach 2**32 - 1) keep their uint32 bit pattern in
-    the same int32 storage; only the CUDA kernels read them.
-  * The device of a tensor decides the route. A CUDA tensor goes through the
-    hand-written kernels in ``csrc/`` (or the wrapper raises); a CPU tensor
-    goes through the plain PyTorch version of the same function. Nothing
-    falls back from one to the other.
+  * The modulus chain picks the word, as in the JAX package. Where every
+    modulus is below 2**31, residues are ``torch.int32`` tensors (a
+    canonical residue in [0, q) fits without a sign; Shoup and Barrett
+    constants keep their uint32 bit pattern in the same storage). Otherwise
+    (the u64 engine, moduli below 2**62) they are ``torch.int64`` tensors
+    holding uint64 bits, and no int64 op relies on overflow wrapping
+    (``core/modmath.py``).
+  * The word, then the device, decides the route. An int32 CUDA tensor goes
+    through the hand-written kernels in ``csrc/`` (or the wrapper raises);
+    an int32 CPU tensor, and an int64 tensor on any device, go through the
+    plain PyTorch version of the same function. Nothing falls back from one
+    to the other.
   * ``CkksContext`` lives on ``"cuda"`` unless the caller asks for the CPU.
 """
 

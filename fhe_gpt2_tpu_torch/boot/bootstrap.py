@@ -48,9 +48,10 @@ CACHE_DIR = os.path.join(os.path.dirname(os.path.dirname(
 # ---------------------------------------------------------------------------
 
 def _mod_raise_core(x, t_q0, t_full, q0_img, q0_half: int):
-    """x: int32[k, 1, N] NTT form mod q0 -> int32[k, L, N] NTT form mod the
-    full chain. Centred lift: v in [0, q0) maps to v if v <= q0/2, else
-    v - q0, reduced into each target modulus."""
+    """x: [k, 1, N] NTT form mod q0 -> [k, L, N] NTT form mod the full
+    chain, in the chain's word (int32, or int64 on a u64 chain). Centred
+    lift: v in [0, q0) maps to v if v <= q0/2, else v - q0, reduced into
+    each target modulus."""
     coeff = nttmod.intt(x, t_q0)[..., 0, :]                 # [k, N] mod q0
     big = coeff > q0_half
     r = reduce_mod(coeff[..., None, :], t_full.q)
@@ -85,7 +86,8 @@ def mod_raise(ctx, ct: Ciphertext) -> Ciphertext:
     Q0 = ctx.q0_int
     L = ctx.L
     t_full = ctx.tables(L)
-    q0_img = word_tensor(ctx.const_residues(Q0, tuple(range(L))), ctx.device)
+    q0_img = word_tensor(ctx.const_residues(Q0, tuple(range(L))), ctx.device,
+                         word=ctx.word)
     data = ct.data.contiguous()
     if ctx.base_limbs == 1:
         raised = _mod_raise_core(data, ctx.tables((0,)), t_full, q0_img,

@@ -1,8 +1,10 @@
-"""CKKS parameter sets and the device-resident context (uint32 engine).
+"""CKKS parameter sets and the device-resident context, for both words.
 
-Counterpart of ``fhe_gpt2_tpu/core/context.py`` (``:25-384``): the same
-parameter constructors (so the moduli chains come out identical) and the
-same table accessors, with every table a tensor on ``ctx.device``.
+Counterpart of ``fhe_gpt2_tpu/core/context.py`` (``:25-440``): the same
+parameter constructors (so the moduli chains come out identical, the
+reference's ``cnn_params``/``gpt2_params`` regimes included) and the same
+table accessors, with every table a tensor on ``ctx.device`` in the chain's
+word: int32 when every modulus is below 2**31, else int64 (``word_dtype``).
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import numpy as np
 import torch
 
 from . import primes, ntt as nttmod, rns
-from .modmath import shoup, word_dtype, word_bits_of, word_tensor
+from .modmath import MAX_MODULUS, shoup, torch_word, word_dtype, \
+    word_bits_of, word_tensor
 
 
 @dataclass(frozen=True)
@@ -131,11 +134,15 @@ def resolve_device(device=None) -> torch.device:
 
 
 class CkksContext:
-    """Precomputed device constants for one parameter set (uint32 engine).
+    """Precomputed device constants for one parameter set.
 
     Holds NTT tables over the full basis (q chain + special primes),
     per-level rescale/mod-down/key-switch tables, and Galois permutations,
-    all on ``self.device``."""
+    all on ``self.device``. The word is the chain's (``self.word``, as the
+    JAX context's; ``self.dtype`` is the tensor dtype holding it): uint32
+    chains run on int32 tensors and the CUDA kernels, u64 chains (any
+    modulus >= 2**31) on int64 tensors and the plain PyTorch ops on any
+    device."""
 
     def __init__(self, params: CkksParams, device=None):
         self.device = resolve_device(device)
@@ -145,14 +152,13 @@ class CkksContext:
         self.moduli = list(params.moduli)
         self.special = list(params.special)
         self.all_moduli = self.moduli + self.special
-        if max(self.all_moduli) >= (1 << 31):
-            raise NotImplementedError(
-                "only the uint32 engine (every modulus < 2**31) is ported; "
-                "the u64 engine is a later slice")
+        if max(self.all_moduli) >= MAX_MODULUS:
+            raise ValueError("every modulus must lie below 2**62")
         self.L = len(self.moduli)
         self.k_sp = len(self.special)
-        self.word = word_dtype(self.all_moduli)       # np.uint32
+        self.word = word_dtype(self.all_moduli)       # np.uint32 / np.uint64
         self.word_bits = word_bits_of(self.word)
+        self.dtype = torch_word(self.word)            # torch.int32 / int64
         self.ntt_all = nttmod.make_ntt_tables(self.all_moduli, self.n,
                                               self.device)
         self._level_tables: dict[tuple, nttmod.NttTables] = {}
@@ -238,14 +244,15 @@ class CkksContext:
             dst = [self.all_moduli[i] for i in self.key_limbs(level)]
             return tuple(
                 rns.make_base_conv([self.moduli[i] for i in g], dst,
-                                   self.device)
+                                   self.device, self.word)
                 for g in self.digit_groups(level))
         return self._cached(("decomp", level), build)
 
     def drop_last_tables(self, level: int) -> rns.DropLastTables:
         """Rescale tables: divide by q_{level-1}, keep q_0..q_{level-2}."""
         return self._cached(("drop", level), lambda: rns.make_drop_last(
-            self.moduli[: level - 1], self.moduli[level - 1], self.device))
+            self.moduli[: level - 1], self.moduli[level - 1], self.device,
+            self.word))
 
     def rescale_pair_tables(self, level: int) -> rns.ModDownTables:
         """One-shot composite rescale: divide by the trailing
@@ -253,12 +260,20 @@ class CkksContext:
         g = self.rescale_limbs
         return self._cached(("pair", level), lambda: rns.make_mod_down(
             self.moduli[: level - g], self.moduli[level - g: level],
-            self.device))
+            self.device, self.word))
 
     def mod_down_onestep_tables(self, level: int) -> rns.ModDownTables:
         """One-shot key-switch mod-down: divide by P = prod(special)."""
         return self._cached(("onestep", level), lambda: rns.make_mod_down(
-            self.moduli[:level], self.special, self.device))
+            self.moduli[:level], self.special, self.device, self.word))
+
+    def mod_down_tables(self, level: int, sp: int = 0) -> rns.DropLastTables:
+        """Exact drop of special prime `sp`, keeping q_0..q_{level-1} +
+        specials 0..sp-1 (the per-prime mod-down the one-shot form
+        replaces; specials drop last to first)."""
+        return self._cached(("drop_sp", level, sp), lambda: rns.make_drop_last(
+            self.moduli[:level] + self.special[:sp], self.special[sp],
+            self.device, self.word))
 
     def fused_md_tables(self, level: int, pair: bool = False):
         """Constants of the mod-down kernel (core/tks.py): divide by the
@@ -313,17 +328,26 @@ class CkksContext:
             P = math.prod(self.special)
             limbs = self.key_limbs(level)
             r = [P % self.all_moduli[i] for i in limbs]
-            sh = [shoup(v, self.all_moduli[i]) if v else 0
+            sh = [shoup(v, self.all_moduli[i], self.word_bits) if v else 0
                   for v, i in zip(r, limbs)]
-            return (word_tensor(r, self.device, (-1, 1)),
-                    word_tensor(sh, self.device, (-1, 1)))
+            return (word_tensor(r, self.device, (-1, 1), self.word),
+                    word_tensor(sh, self.device, (-1, 1), self.word))
         return self._cached(("p_res", level), build)
 
     def const_residues(self, value: int, limbs: tuple[int, ...]) -> np.ndarray:
-        """[value mod q_i] for a limb set, as a uint32 column."""
+        """[value mod q_i] for a limb set, as a word-dtype column."""
         return np.array(
             [value % self.all_moduli[i] for i in limbs], dtype=self.word
         ).reshape(-1, 1)
+
+
+@lru_cache(maxsize=None)
+def test_params(logn: int = 10, levels: int = 4) -> CkksParams:
+    """Small u64-engine parameter set for fast CPU tests."""
+    return CkksParams.create(
+        logn=logn, log_q0=50, log_scale=40, num_levels=levels,
+        log_special=51, hamming_weight=16,
+    )
 
 
 @lru_cache(maxsize=None)
@@ -345,4 +369,24 @@ def w32_params(logn: int = 15, levels: int = 22, num_special: int = 3,
         logn=logn, log_q0=29, log_scale=log_scale, num_levels=levels,
         log_special=31, num_special=num_special,
         hamming_weight=hamming_weight, sparse_slots=sparse_slots,
+    )
+
+
+@lru_cache(maxsize=None)
+def cnn_params() -> CkksParams:
+    """Reference CNN parameter regime (infer_seal.cpp:287-322): logN=16,
+    logq0=51, logp=46, L=16 usable + 14 bootstrap levels, special 51, h=192."""
+    return CkksParams.create(
+        logn=16, log_q0=51, log_scale=46, num_levels=30,
+        log_special=51, hamming_weight=192, sparse_slots=1 << 14,
+    )
+
+
+@lru_cache(maxsize=None)
+def gpt2_params() -> CkksParams:
+    """Reference GPT-2 regime (run/infer_gpt2.cpp:63-85): logN=16, L=21+14,
+    logq0=51, logp=46, special 60, h=192."""
+    return CkksParams.create(
+        logn=16, log_q0=51, log_scale=46, num_levels=35,
+        log_special=60, hamming_weight=192, sparse_slots=1 << 14,
     )

@@ -93,7 +93,8 @@ def encode_to_coeffs(values: np.ndarray, scale: float, ctx) -> np.ndarray:
 
 
 def rns_to_centered_ints(res: np.ndarray, ctx, limbs) -> np.ndarray:
-    """uint32[k, n] residues -> exact centered big-int coefficients (object),
+    """[k, n] residues (uint32 or uint64) -> exact centered big-int
+    coefficients (object),
     from only as many limbs as a 240-bit magnitude bound needs."""
     need_bits = 240
     use = []
@@ -116,7 +117,7 @@ def rns_to_centered_ints(res: np.ndarray, ctx, limbs) -> np.ndarray:
 
 
 def decode(res: np.ndarray, scale: float, ctx, limbs, num_slots=None) -> np.ndarray:
-    """uint32 RNS coefficients -> complex slot values."""
+    """RNS coefficients (uint32 or uint64 words) -> complex slot values."""
     if native.available():
         # The limbs a 240-bit magnitude bound needs, as rns_to_centered_ints
         # takes them.

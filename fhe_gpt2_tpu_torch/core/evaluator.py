@@ -1,12 +1,15 @@
-"""CKKS evaluator: the op surface of the crypto core (uint32 engine).
+"""CKKS evaluator: the op surface of the crypto core, for both words.
 
 Counterpart of ``fhe_gpt2_tpu/core/evaluator.py``: the same ops, the same
 arithmetic and the same key-switch structure (hybrid digits of alpha =
 k_sp limbs, one-shot HPS mod-down), so on the same keys and seeds the
-ciphertexts equal the JAX package's. Ciphertexts are ``int32[k, *batch, l,
-N]`` NTT-form tensors on the context's device. Key switching and mod-down
-go through ``core/tks.py`` and every transform through ``core/ntt.py``,
-which route CUDA tensors to the hand-written kernels.
+ciphertexts equal the JAX package's. Ciphertexts are NTT-form tensors
+``[k, *batch, l, N]`` on the context's device, in the chain's word (int32
+for uint32 chains, int64 for u64 chains). Key switching and mod-down go
+through ``core/tks.py`` and every transform through ``core/ntt.py``, which
+route int32 CUDA tensors to the hand-written kernels and int64 tensors (on
+any device) to the plain PyTorch ops, as the JAX package runs its u64
+engine on XLA ops.
 
 The hoisted rotations decompose c1 once (``tks._decompose_core``, whose
 transforms are the NTT kernels on the card) and run only the key MAC (torch
@@ -33,13 +36,13 @@ from .context import CkksContext
 from .keys import GaloisKeys, KSwitchKey, PublicKey, SecretKey, make_rng, \
     sample_gaussian, sample_ternary, sample_uniform_rns, _to_rns
 from .modmath import add_mod, sub_mod, neg_mod, mul_mod, mul_mod_shoup, \
-    reduce_mod, to_numpy_u32, word_tensor
+    reduce_mod, to_numpy_word, word_tensor
 from .rns import DropLastTables
 
 
 @dataclass
 class Ciphertext:
-    """RNS-CKKS ciphertext. data: int32[k, *batch, l, N] in NTT form."""
+    """RNS-CKKS ciphertext. data: [k, *batch, l, N] words in NTT form."""
 
     data: torch.Tensor
     scale: float
@@ -59,7 +62,7 @@ class Ciphertext:
 
 @dataclass
 class Plaintext:
-    """Encoded plaintext. data: int32[l, N] in NTT form."""
+    """Encoded plaintext. data: [l, N] words in NTT form."""
 
     data: torch.Tensor
     scale: float
@@ -101,11 +104,11 @@ class Evaluator:
         tables t, as the JAX package's ``embedding.encode`` gives them. The
         canonical-embedding rounding runs on the host (numpy float64); the
         reduction modulo every limb is one exact int64 remainder on
-        ctx.device."""
+        ctx.device, in the chain's word."""
         coeffs = torch.from_numpy(
             embedding.encode_to_coeffs(values, scale, self.ctx))
         return torch.remainder(coeffs.to(self.ctx.device)[None, :],
-                               t.q.long()).to(torch.int32)
+                               t.q.long()).to(t.q.dtype)
 
     def make_plain(self, values, scale: float, level: int) -> Plaintext:
         """Encode a slot vector (host) into an NTT-form plaintext."""
@@ -114,8 +117,8 @@ class Evaluator:
                          scale=scale)
 
     def decode_plain(self, pt: Plaintext, num_slots=None) -> np.ndarray:
-        res = to_numpy_u32(nttmod.intt(pt.data.contiguous(),
-                                       self.ctx.tables(pt.level)))
+        res = to_numpy_word(nttmod.intt(pt.data.contiguous(),
+                                        self.ctx.tables(pt.level)))
         return embedding.decode(res, pt.scale, self.ctx,
                                 tuple(range(pt.level)), num_slots)
 
@@ -153,7 +156,7 @@ class Evaluator:
 
     def _const(self, m: int, level: int) -> torch.Tensor:
         return word_tensor(self.ctx.const_residues(m, tuple(range(level))),
-                           self.ctx.device)
+                           self.ctx.device, word=self.ctx.word)
 
     def add_const(self, a: Ciphertext, value: float) -> Ciphertext:
         """a + value broadcast over slots (no level/scale cost)."""
@@ -163,8 +166,9 @@ class Evaluator:
 
     def mul_const_int(self, a: Ciphertext, m: int) -> Ciphertext:
         """Multiply by an exact integer (scale unchanged)."""
-        return Ciphertext(mul_mod(a.data, self._const(m, a.level),
-                                  self._t(a.level).q), a.scale)
+        t = self._t(a.level)
+        return Ciphertext(mul_mod(a.data, self._const(m, a.level), t.q,
+                                  t.ratio0, t.ratio1), a.scale)
 
     def mul_const(self, a: Ciphertext, value: float,
                   const_scale: Optional[float] = None) -> Ciphertext:
@@ -175,7 +179,8 @@ class Evaluator:
 
     def mul_plain(self, a: Ciphertext, p: Plaintext) -> Ciphertext:
         assert a.level == p.level
-        return Ciphertext(mul_mod(a.data, p.data, self._t(a.level).q),
+        t = self._t(a.level)
+        return Ciphertext(mul_mod(a.data, p.data, t.q, t.ratio0, t.ratio1),
                           a.scale * p.scale)
 
     def mul_vector(self, a: Ciphertext, values,
@@ -188,11 +193,15 @@ class Evaluator:
     def multiply(self, a: Ciphertext, b: Ciphertext,
                  relin: bool = True) -> Ciphertext:
         assert a.level == b.level and a.k == 2 and b.k == 2
-        q = self._t(a.level).q
-        d0 = mul_mod(a.data[0], b.data[0], q)
-        d1 = add_mod(mul_mod(a.data[0], b.data[1], q),
-                     mul_mod(a.data[1], b.data[0], q), q)
-        d2 = mul_mod(a.data[1], b.data[1], q)
+        t = self._t(a.level)
+        q = t.q
+
+        def mm(x, y):
+            return mul_mod(x, y, q, t.ratio0, t.ratio1)
+
+        d0 = mm(a.data[0], b.data[0])
+        d1 = add_mod(mm(a.data[0], b.data[1]), mm(a.data[1], b.data[0]), q)
+        d2 = mm(a.data[1], b.data[1])
         out = Ciphertext(torch.stack([d0, d1, d2]), a.scale * b.scale)
         if relin:
             out = self.relinearize(out)
@@ -356,7 +365,7 @@ class Evaluator:
                               steps: list[int]) -> list[torch.Tensor]:
         """Double hoisting (Bossuat et al., EUROCRYPT'21): rotations of one
         ciphertext kept in the extended QP basis, without the per-rotation
-        mod-down. Returns per step int32[2, ..., l+k, N] holding
+        mod-down. Returns per step words [2, ..., l+k, N] holding
         P·(rotated ct); callers mask-multiply, accumulate in QP and pay one
         mod-down per accumulator (``mod_down_ext``)."""
         ctx = self.ctx
@@ -487,11 +496,12 @@ class Encryptor:
         self.rng = make_rng(seed, secure, rng)
 
     def _rns(self, host) -> torch.Tensor:
-        return word_tensor(host, self.ctx.device)
+        return word_tensor(host, self.ctx.device, word=self.ctx.word)
 
     def encrypt_symmetric(self, pt: Plaintext, a=None) -> Ciphertext:
-        """(b, a) with b = -(a·s) + e + m. ``a`` (uint32 residues [l, N],
-        NTT form, numpy or an int32 tensor) replaces the uniform draw."""
+        """(b, a) with b = -(a·s) + e + m. ``a`` (residues [l, N], NTT
+        form, numpy or a tensor in the chain's word) replaces the uniform
+        draw."""
         ctx, l = self.ctx, pt.level
         t = ctx.tables(l)
         mods = [ctx.all_moduli[i] for i in range(l)]
@@ -502,7 +512,8 @@ class Encryptor:
         e = self._rns(_to_rns(
             sample_gaussian(self.rng, ctx.n, ctx.params.error_std), mods))
         s = self.secret.ntt[:l]
-        b = add_mod(neg_mod(mul_mod(a, s, t.q), t.q), nttmod.ntt(e, t), t.q)
+        b = add_mod(neg_mod(mul_mod(a, s, t.q, t.ratio0, t.ratio1), t.q),
+                    nttmod.ntt(e, t), t.q)
         b = add_mod(b, pt.data, t.q)
         return Ciphertext(torch.stack([b, a]), pt.scale)
 
@@ -512,7 +523,7 @@ class Encryptor:
         wire form carries (c0, seed). Returns (Ciphertext, seed)."""
         seed = os.urandom(32)
         mods = [self.ctx.all_moduli[i] for i in range(pt.level)]
-        a = expand_uniform(seed, self.ctx.n, mods, np.uint32)
+        a = expand_uniform(seed, self.ctx.n, mods, self.ctx.word)
         return self.encrypt_symmetric(pt, a=a), seed
 
     def encrypt(self, pt: Plaintext) -> Ciphertext:
@@ -532,7 +543,8 @@ class Encryptor:
         for c in range(2):
             e = self._rns(_to_rns(
                 sample_gaussian(self.rng, ctx.n, ctx.params.error_std), mods))
-            cts.append(add_mod(mul_mod(self.public.data[c], u_ntt, t.q),
+            cts.append(add_mod(mul_mod(self.public.data[c], u_ntt, t.q,
+                                       t.ratio0, t.ratio1),
                                nttmod.ntt(e, t), t.q))
         data = Evaluator(ctx)._mod_down_special(torch.stack(cts), ctx.L)
         data = data[:, : pt.level]
@@ -558,17 +570,19 @@ class Decryptor:
         self.secret = secret
 
     def decrypt_to_rns(self, ct: Ciphertext) -> np.ndarray:
-        """c0 + c1·s (+ c2·s²) -> coefficient-domain uint32 residues [l, N]."""
+        """c0 + c1·s (+ c2·s²) -> coefficient-domain residues [l, N], as
+        the JAX package's array (uint32, or uint64 on a u64 chain)."""
         l = ct.level
         t = self.ctx.tables(l)
         s = self.secret.ntt[:l]
         acc = ct.data[0]
         spow = s
         for j in range(1, ct.k):
-            acc = add_mod(acc, mul_mod(ct.data[j], spow, t.q), t.q)
+            acc = add_mod(acc, mul_mod(ct.data[j], spow, t.q, t.ratio0,
+                                       t.ratio1), t.q)
             if j + 1 < ct.k:
-                spow = mul_mod(spow, s, t.q)
-        return to_numpy_u32(nttmod.intt(acc.contiguous(), t))
+                spow = mul_mod(spow, s, t.q, t.ratio0, t.ratio1)
+        return to_numpy_word(nttmod.intt(acc.contiguous(), t))
 
     def decrypt(self, ct: Ciphertext, num_slots=None) -> np.ndarray:
         res = self.decrypt_to_rns(ct)

@@ -3,8 +3,10 @@ Galois key-switching keys (hybrid scheme, digits of alpha = k_sp limbs).
 
 Counterpart of ``fhe_gpt2_tpu/core/keys.py``. Sampling runs host-side with
 the numpy RNG (or the SHAKE-256 CSPRNG of ``core/csprng.py``) and draws in
-the same order as the JAX package, so the same seed gives the same keys; the NTT and the modular products run on
-``ctx.device``. All keys are stored NTT-form as int32 residues.
+the same order as the JAX package, so the same seed gives the same keys
+whatever the word; the NTT and the modular products run on ``ctx.device``.
+All keys are stored NTT-form in the chain's word (int32 residues for
+uint32 chains, int64 for u64 chains).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from .modmath import add_mod, neg_mod, mul_mod, mul_mod_shoup, shoup, \
 # ---------------------------------------------------------------------------
 
 def _to_rns(signed: np.ndarray, moduli: list[int]) -> np.ndarray:
-    """Small signed int64 coefficients -> uint32 [L, N] residues."""
+    """Small signed int64 coefficients -> word-dtype [L, N] residues."""
     dt = word_dtype(moduli)
     out = np.zeros((len(moduli), signed.shape[-1]), dtype=dt)
     for i, q in enumerate(moduli):
@@ -61,20 +63,20 @@ def sample_uniform_rns(rng: np.random.Generator, n: int, moduli: list[int]):
 
 @dataclass
 class SecretKey:
-    ntt: torch.Tensor      # int32 [L+k, N], NTT form over the full basis
+    ntt: torch.Tensor      # words [L+k, N], NTT form over the full basis
     coeffs: np.ndarray     # int64 [N] ternary (host)
 
 
 @dataclass
 class PublicKey:
-    data: torch.Tensor     # int32 [2, L+k, N] NTT form (b, a) at key level
+    data: torch.Tensor     # words [2, L+k, N] NTT form (b, a) at key level
 
 
 @dataclass
 class KSwitchKey:
-    """data[digit] = int32 [2, L+k, N] NTT form; digit j covers the limb
+    """data[digit] = words [2, L+k, N] NTT form; digit j covers the limb
     group [j*alpha, (j+1)*alpha)."""
-    data: torch.Tensor     # int32 [num_digits, 2, L+k, N]
+    data: torch.Tensor     # words [num_digits, 2, L+k, N]
     # Active digits/limbs per level in the kernel's [2, D, J, N] layout,
     # cut once and reused by every key switch at that level.
     _sliced: dict = field(default_factory=dict, repr=False, compare=False)
@@ -138,23 +140,29 @@ class KeyGenerator:
         self.rng = make_rng(seed, secure, rng)
         s = sample_ternary(self.rng, ctx.n, ctx.params.hamming_weight)
         tables = ctx.tables(tuple(range(len(ctx.all_moduli))))
-        s_rns = word_tensor(_to_rns(s, ctx.all_moduli), ctx.device)
+        s_rns = self._words(_to_rns(s, ctx.all_moduli))
         self.secret = SecretKey(ntt=nttmod.ntt(s_rns, tables), coeffs=s)
         self._tables_all = tables
+
+    def _words(self, host, shape=None) -> torch.Tensor:
+        return word_tensor(host, self.ctx.device, shape, self.ctx.word)
+
+    def _mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        t = self._tables_all
+        return mul_mod(a, b, t.q, t.ratio0, t.ratio1)
 
     def _rlwe(self, a: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
         """b = -(a·s) + NTT(e) over the full basis, batched over leading dims."""
         t = self._tables_all
-        return add_mod(neg_mod(mul_mod(a, self.secret.ntt, t.q), t.q),
+        return add_mod(neg_mod(self._mul(a, self.secret.ntt), t.q),
                        nttmod.ntt(e, t), t.q)
 
     def public_key(self) -> PublicKey:
         ctx = self.ctx
-        a = word_tensor(sample_uniform_rns(self.rng, ctx.n, ctx.all_moduli),
-                        ctx.device)
-        e = word_tensor(_to_rns(sample_gaussian(self.rng, ctx.n,
+        a = self._words(sample_uniform_rns(self.rng, ctx.n, ctx.all_moduli))
+        e = self._words(_to_rns(sample_gaussian(self.rng, ctx.n,
                                                 ctx.params.error_std),
-                                ctx.all_moduli), ctx.device)
+                                ctx.all_moduli))
         return PublicKey(data=torch.stack([self._rlwe(a, e), a]))
 
     def _kswitch_key(self, s_src_ntt: torch.Tensor) -> KSwitchKey:
@@ -172,12 +180,11 @@ class KeyGenerator:
         e = np.stack([
             _to_rns(sample_gaussian(self.rng, ctx.n, ctx.params.error_std),
                     ctx.all_moduli) for _ in range(D)])
-        a = word_tensor(a, ctx.device)
-        b = self._rlwe(a, word_tensor(e, ctx.device))
-        p_factor = word_tensor([P % q for q in ctx.all_moduli], ctx.device,
-                               (-1, 1))
-        p_sh = word_tensor([shoup(P % q, q) for q in ctx.all_moduli],
-                           ctx.device, (-1, 1))
+        a = self._words(a)
+        b = self._rlwe(a, self._words(e))
+        p_factor = self._words([P % q for q in ctx.all_moduli], (-1, 1))
+        p_sh = self._words([shoup(P % q, q, ctx.word_bits)
+                            for q in ctx.all_moduli], (-1, 1))
         own = np.zeros((D, len(ctx.all_moduli), 1), dtype=bool)
         for j, g in enumerate(ctx.digit_groups(ctx.L)):
             own[j, list(g)] = True
@@ -187,8 +194,7 @@ class KeyGenerator:
         return KSwitchKey(data=torch.stack([b, a], dim=1))       # [D,2,L+k,N]
 
     def relin_key(self) -> KSwitchKey:
-        t = self._tables_all
-        return self._kswitch_key(mul_mod(self.secret.ntt, self.secret.ntt, t.q))
+        return self._kswitch_key(self._mul(self.secret.ntt, self.secret.ntt))
 
     def galois_key(self, galois_elt: int) -> KSwitchKey:
         perm = self.ctx.galois_perm(galois_elt)

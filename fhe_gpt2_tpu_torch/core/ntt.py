@@ -1,16 +1,19 @@
-"""Negacyclic NTT over RNS limb towers (uint32 engine).
+"""Negacyclic NTT over RNS limb towers, for both engine words.
 
 Counterpart of ``fhe_gpt2_tpu/core/ntt.py``: the same tables, the same
 butterfly network and the same output order (slot j holds the evaluation at
 ψ^(2·br(j)+1), ``point_exponents``), so Galois maps and the canonical
 embedding are shared with the JAX package.
 
-``ntt``/``intt`` route by device: a CUDA tensor goes to the hand-written
-kernel in ``core/tntt.py`` for every N from 2048 to 65536; a CPU tensor goes
-to the plain stage loop ``_ntt_stages``/``_intt_stages``.
+``ntt``/``intt`` route by word, then by device: an int32 CUDA tensor goes
+to the hand-written kernel in ``core/tntt.py`` for every N from 2048 to
+65536; an int32 CPU tensor, and an int64 tensor (the u64 engine, which has
+no kernel) on any device, go to the plain stage loop
+``_ntt_stages``/``_intt_stages``.
 
-Conventions: ``x`` is ``int32[..., L, N]`` residues, limb axis second to
-last, leading batch dims flattened by the kernel.
+Conventions: ``x`` is ``int32[..., L, N]`` or ``int64[..., L, N]``
+residues, limb axis second to last, leading batch dims flattened by the
+kernel.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import numpy as np
 import torch
 
 from . import primes
-from .modmath import add_mod, sub_mod, mul_mod_shoup, word_tensor
+from .modmath import add_mod, sub_mod, mul_mod_shoup, word_bits_of, \
+    word_dtype, word_tensor
 
 
 def bit_reverse(x: int, bits: int) -> int:
@@ -46,15 +50,16 @@ class NttTables:
     """Per-modulus-set NTT constants on one device.
 
     Shapes: moduli/Barrett/N^-1 columns ``[L, 1]``, twiddles ``[L, N]``,
-    all int32 (Shoup and Barrett words keep their uint32 bits). The TPU
-    four-step tables (``fs``) of the JAX package have no counterpart: the
-    CUDA kernel reads ``roots``/``inv_roots`` directly."""
+    all in the chain's word: int32 holding uint32 bits, or int64 holding
+    uint64 bits (the JAX tables' words, Shoup and Barrett words included).
+    The TPU four-step tables (``fs``) of the JAX package have no
+    counterpart: the CUDA kernel reads ``roots``/``inv_roots`` directly."""
 
     n: int
     logn: int
     q: torch.Tensor            # [L, 1]
-    ratio0: torch.Tensor       # [L, 1] floor(2^64/q) low word
-    ratio1: torch.Tensor       # [L, 1] floor(2^64/q) high word
+    ratio0: torch.Tensor       # [L, 1] floor(2^(2w)/q) low word
+    ratio1: torch.Tensor       # [L, 1] floor(2^(2w)/q) high word
     roots: torch.Tensor        # [L, N] ψ^{br(i)}
     roots_shoup: torch.Tensor
     inv_roots: torch.Tensor    # [L, N] ψ^{-br(i)}
@@ -88,29 +93,38 @@ class NttTables:
 
 
 def _powers(base: int, count: int, q: int) -> np.ndarray:
-    """[base^e mod q for e in range(count)] as uint64 (q < 2**31, so every
-    product of two residues fits), by repeated doubling of the prefix."""
-    out = np.ones(count, dtype=np.uint64)
+    """[base^e mod q for e in range(count)], by repeated doubling of the
+    prefix: in uint64 words where q < 2**32 (every product of two residues
+    fits), else in Python ints (object array), which a 60-bit q needs."""
+    obj = q >= (1 << 32)
+    out = np.ones(count, dtype=object if obj else np.uint64)
     k = 1
     step = base % q                         # base^k
-    qq = np.uint64(q)
+    qq = q if obj else np.uint64(q)
     while k < count:
         m = min(k, count - k)
-        out[k:k + m] = out[:m] * np.uint64(step) % qq
+        out[k:k + m] = out[:m] * (step if obj else np.uint64(step)) % qq
         k += m
         step = step * step % q
     return out
 
 
+def _shoup_words(pw: np.ndarray, q: int, wb: int) -> np.ndarray:
+    """floor(w·2^wb/q) of each residue w, as uint64 words."""
+    if wb == 32:
+        return (pw << np.uint64(32)) // np.uint64(q)
+    return np.array([(int(w) << 64) // q for w in pw], dtype=np.uint64)
+
+
 def make_ntt_tables(moduli: list[int], n: int,
                     device: str | torch.device = "cuda") -> NttTables:
     """Precompute twiddle tables for each modulus (host, exact), then move
-    them to `device`. Bit-identical to the JAX package's tables."""
+    them to `device`. The word (uint32/uint64) follows the moduli
+    (``word_dtype``); the tables are the JAX package's, word for word."""
     logn = n.bit_length() - 1
     assert 1 << logn == n
-    if max(moduli) >= (1 << 31):
-        raise NotImplementedError("only the uint32 engine (moduli < 2**31) "
-                                  "is ported")
+    word = word_dtype(moduli)
+    wb = word_bits_of(word)
     L = len(moduli)
     br = _bit_reverse_array(logn)
     roots = np.zeros((L, n), dtype=np.uint64)
@@ -119,35 +133,37 @@ def make_ntt_tables(moduli: list[int], n: int,
     inv_roots_sh = np.zeros((L, n), dtype=np.uint64)
     cols = {k: [] for k in ("q", "r0", "r1", "ninv", "ninv_sh")}
     psis = []
+    mask = (1 << wb) - 1
     for li, q in enumerate(moduli):
         psi = primes.root_of_unity(2 * n, q)
         psis.append(psi)
         inv_psi = primes.mod_inverse(psi, q)
-        qq = np.uint64(q)
         # Only exponents < n are read (br(i) < n), so n powers suffice.
         pw = _powers(psi, n, q)[br]
         ipw = _powers(inv_psi, n, q)[br]
         roots[li] = pw
-        roots_sh[li] = (pw << np.uint64(32)) // qq
+        roots_sh[li] = _shoup_words(roots[li], q, wb)
         inv_roots[li] = ipw
-        inv_roots_sh[li] = (ipw << np.uint64(32)) // qq
-        rat = (1 << 64) // q
+        inv_roots_sh[li] = _shoup_words(inv_roots[li], q, wb)
+        rat = (1 << (2 * wb)) // q
         iv = primes.mod_inverse(n, q)
         cols["q"].append(q)
-        cols["r0"].append(rat & 0xFFFFFFFF)
-        cols["r1"].append(rat >> 32)
+        cols["r0"].append(rat & mask)
+        cols["r1"].append(rat >> wb)
         cols["ninv"].append(iv)
-        cols["ninv_sh"].append((iv << 32) // q)
+        cols["ninv_sh"].append((iv << wb) // q)
+
+    def tensor(v, shape=None):
+        return word_tensor(v, device, shape, word)
 
     def col(v):
-        return word_tensor(v, device, (L, 1))
+        return tensor(v, (L, 1))
 
     return NttTables(
         n=n, logn=logn,
         q=col(cols["q"]), ratio0=col(cols["r0"]), ratio1=col(cols["r1"]),
-        roots=word_tensor(roots, device), roots_shoup=word_tensor(roots_sh, device),
-        inv_roots=word_tensor(inv_roots, device),
-        inv_roots_shoup=word_tensor(inv_roots_sh, device),
+        roots=tensor(roots), roots_shoup=tensor(roots_sh),
+        inv_roots=tensor(inv_roots), inv_roots_shoup=tensor(inv_roots_sh),
         n_inv=col(cols["ninv"]), n_inv_shoup=col(cols["ninv_sh"]),
         moduli=tuple(moduli), psi=tuple(psis),
     )

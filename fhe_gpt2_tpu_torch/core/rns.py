@@ -2,8 +2,10 @@
 the last modulus, and the one-shot HPS mod-down by a product of primes.
 
 Counterpart of ``fhe_gpt2_tpu/core/rns.py`` (``:64-245``), as plain
-PyTorch ops on int32 residues. Tables are built host-side with exact
-Python ints and live on the context's device.
+PyTorch ops on residues of either word (int32 for uint32 chains, int64 for
+u64 chains). Tables are built host-side with exact Python ints in the
+word of their moduli (``word_dtype``, as the JAX package chooses it, or the
+context's word when it passes one) and live on the context's device.
 """
 
 from __future__ import annotations
@@ -15,11 +17,11 @@ import torch
 
 from . import primes
 from .modmath import add_mod, sub_mod, mul_mod, mul_mod_shoup, reduce_mod, \
-    barrett_ratio, shoup, word_tensor
+    barrett_ratio, shoup, word_bits_of, word_dtype, word_tensor
 
 
-def _wcol(vals, device) -> torch.Tensor:
-    return word_tensor(vals, device, (-1, 1))
+def _wcol(vals, device, word) -> torch.Tensor:
+    return word_tensor(vals, device, (-1, 1), word)
 
 
 @dataclass(frozen=True)
@@ -40,8 +42,10 @@ class BaseConvTables:
     dst_r1: torch.Tensor           # [kd,1]
 
 
-def make_base_conv(src: list[int], dst: list[int],
-                   device="cuda") -> BaseConvTables:
+def make_base_conv(src: list[int], dst: list[int], device="cuda",
+                   word=None) -> BaseConvTables:
+    word = word or word_dtype(list(src) + list(dst))
+    wb = word_bits_of(word)
     S = 1
     for s in src:
         S *= s
@@ -50,14 +54,14 @@ def make_base_conv(src: list[int], dst: list[int],
                         dtype=np.uint64).reshape(len(src), len(dst))
     return BaseConvTables(
         src=tuple(src), dst=tuple(dst),
-        inv_punc=_wcol(inv_punc, device),
-        inv_punc_shoup=_wcol([shoup(v, s) for v, s in zip(inv_punc, src)],
-                             device),
-        src_q=_wcol(src, device),
-        punc_mod_dst=word_tensor(punc_mod, device),
-        dst_q=_wcol(dst, device),
-        dst_r0=_wcol([barrett_ratio(d)[0] for d in dst], device),
-        dst_r1=_wcol([barrett_ratio(d)[1] for d in dst], device),
+        inv_punc=_wcol(inv_punc, device, word),
+        inv_punc_shoup=_wcol([shoup(v, s, wb) for v, s in zip(inv_punc, src)],
+                             device, word),
+        src_q=_wcol(src, device, word),
+        punc_mod_dst=word_tensor(punc_mod, device, word=word),
+        dst_q=_wcol(dst, device, word),
+        dst_r0=_wcol([barrett_ratio(d, wb)[0] for d in dst], device, word),
+        dst_r1=_wcol([barrett_ratio(d, wb)[1] for d in dst], device, word),
     )
 
 
@@ -67,7 +71,8 @@ def base_convert_mac(y: torch.Tensor, t: BaseConvTables) -> torch.Tensor:
     acc = None
     for i in range(len(t.src)):
         w = t.punc_mod_dst[i].reshape(-1, 1)                 # [kd, 1]
-        term = mul_mod(y[..., i:i + 1, :], w, t.dst_q)       # [..., kd, N]
+        term = mul_mod(y[..., i:i + 1, :], w, t.dst_q,       # [..., kd, N]
+                       t.dst_r0, t.dst_r1)
         acc = term if acc is None else add_mod(acc, term, t.dst_q)
     return acc
 
@@ -90,18 +95,20 @@ class DropLastTables:
     q: torch.Tensor                 # [k,1] remaining moduli
 
 
-def make_drop_last(remaining: list[int], q_last: int,
-                   device="cuda") -> DropLastTables:
+def make_drop_last(remaining: list[int], q_last: int, device="cuda",
+                   word=None) -> DropLastTables:
+    word = word or word_dtype(list(remaining) + [q_last])
+    wb = word_bits_of(word)
     half = q_last >> 1
     inv = [primes.mod_inverse(q_last % q, q) for q in remaining]
     return DropLastTables(
         q_last=q_last,
         half=half,
-        half_mod=_wcol([half % q for q in remaining], device),
-        inv_qlast=_wcol(inv, device),
-        inv_qlast_shoup=_wcol([shoup(v, q) for v, q in zip(inv, remaining)],
-                              device),
-        q=_wcol(remaining, device),
+        half_mod=_wcol([half % q for q in remaining], device, word),
+        inv_qlast=_wcol(inv, device, word),
+        inv_qlast_shoup=_wcol([shoup(v, q, wb)
+                               for v, q in zip(inv, remaining)], device, word),
+        q=_wcol(remaining, device, word),
     )
 
 
@@ -119,24 +126,26 @@ class ModDownTables:
     p_mod_q: torch.Tensor        # [l,1]  P mod q_j
 
 
-def make_mod_down(remaining: list[int], specials: list[int],
-                  device="cuda") -> ModDownTables:
+def make_mod_down(remaining: list[int], specials: list[int], device="cuda",
+                  word=None) -> ModDownTables:
+    word = word or word_dtype(list(remaining) + list(specials))
+    wb = word_bits_of(word)
     P = 1
     for p in specials:
         P *= p
     half = P >> 1
     inv = [primes.mod_inverse(P % q, q) for q in remaining]
     return ModDownTables(
-        bct=make_base_conv(specials, remaining, device),
-        half_p=_wcol([half % p for p in specials], device),
-        half_q=_wcol([half % q for q in remaining], device),
-        inv_p=_wcol(inv, device),
-        inv_p_shoup=_wcol([shoup(v, q) for v, q in zip(inv, remaining)],
-                          device),
+        bct=make_base_conv(specials, remaining, device, word),
+        half_p=_wcol([half % p for p in specials], device, word),
+        half_q=_wcol([half % q for q in remaining], device, word),
+        inv_p=_wcol(inv, device, word),
+        inv_p_shoup=_wcol([shoup(v, q, wb) for v, q in zip(inv, remaining)],
+                          device, word),
         p_invf=torch.tensor(np.array([1.0 / p for p in specials],
                                      dtype=np.float32).reshape(-1, 1),
                             device=device),
-        p_mod_q=_wcol([P % q for q in remaining], device),
+        p_mod_q=_wcol([P % q for q in remaining], device, word),
     )
 
 
@@ -149,7 +158,10 @@ def mod_down_convert(a: torch.Tensor, t: ModDownTables) -> torch.Tensor:
     The float32 sum runs i = 0..k-1 sequentially with separate multiply and
     add (no ``torch.sum``), the order of the CUDA kernel in
     ``csrc/moddown.cu``; the JAX ``mod_down_convert`` sums with ``jnp.sum``
-    and may differ by one unit where f sits on a floor boundary."""
+    and may differ by one unit where f sits on a floor boundary. For k <= 2
+    the order cannot matter (and k = 1 clamps u to 0), so on the u64 route,
+    which takes this function on any device, the result is the JAX one.
+    An int64 residue rounds to the nearest float32, as XLA's u64 -> f32."""
     a = add_mod(a, t.half_p, t.bct.src_q)
     v = mul_mod_shoup(a, t.bct.inv_punc, t.bct.inv_punc_shoup, t.bct.src_q)
     img = base_convert_mac(v, t.bct)
@@ -158,8 +170,9 @@ def mod_down_convert(a: torch.Tensor, t: ModDownTables) -> torch.Tensor:
     for i in range(k):
         fi = v[..., i:i + 1, :].to(torch.float32) * t.p_invf[i]
         f = fi if f is None else f + fi
-    u = torch.clamp(torch.floor(f), 0.0, float(k - 1)).to(torch.int32)
-    img = sub_mod(img, mul_mod(u, t.p_mod_q, t.bct.dst_q), t.bct.dst_q)
+    u = torch.clamp(torch.floor(f), 0.0, float(k - 1)).to(img.dtype)
+    img = sub_mod(img, mul_mod(u, t.p_mod_q, t.bct.dst_q, t.bct.dst_r0,
+                               t.bct.dst_r1), t.bct.dst_q)
     return sub_mod(img, t.half_q, t.bct.dst_q)
 
 

@@ -14,13 +14,17 @@ output limb). Each source carries its note on what bounds it and what its
 design does. ``cluster_for`` (``core/tntt.py``) picks the cluster size;
 ``cluster=`` forces it.
 
-Route: CUDA tensors launch the kernels (or the wrapper raises); CPU tensors
-run the plain versions below, which nothing on the card path calls:
-``switch_key_plain`` is the port of ``_decompose_core`` + ``_ks_mac_core``
-and ``mod_down_plain`` is ``mod_down_convert`` + NTT with the kernel's
-sequential float32 sum. The hoisted rotations (``core/evaluator.py``) use
-the split halves themselves, as the JAX package does: ``_decompose_core``
-with its transforms on the NTT kernels, then the ``_ks_mac_core`` torch ops.
+Route: by word first, then by device. int32 CUDA tensors launch the
+kernels (or the wrapper raises); int32 CPU tensors, and int64 tensors (the
+u64 engine) on any device, run the plain versions below, which no int32
+card path calls: ``switch_key_plain`` is the port of ``_decompose_core`` +
+``_ks_mac_core`` and ``mod_down_plain`` is ``mod_down_convert`` + NTT with
+the kernel's sequential float32 sum. The JAX package takes the same split
+path for its u64 engine (``_fused_ks_mode`` is None without Pallas tables,
+which exist only for 32-bit chains), so int64 never reaches a kernel. The
+hoisted rotations (``core/evaluator.py``) use the split halves themselves,
+as the JAX package does: ``_decompose_core`` with its transforms on the NTT
+route, then the ``_ks_mac_core`` torch ops.
 """
 
 from __future__ import annotations
@@ -31,8 +35,8 @@ import numpy as np
 import torch
 
 from . import _cuda, rns
-from .modmath import sub_mod, mul_mod, mul_mod_shoup, mod_sum, shoup, \
-    to_numpy_u32, word_tensor
+from .modmath import add_mod, sub_mod, mul_mod, mul_mod_shoup, mod_sum, \
+    shoup, to_numpy_u32, word_tensor
 from .ntt import NttTables, _intt_stages, _ntt_stages
 # The cluster geometry lives with the NTT wrappers; its names stay
 # importable from here.
@@ -48,13 +52,15 @@ from .tntt import CLUSTER_THREADS, CLUSTER_WORDS, MAX_CLUSTER, \
 
 @dataclass(frozen=True)
 class FusedKsTables:
-    """Constants for one (level → key basis) key switch."""
+    """Constants for one (level → key basis) key switch. A u64 chain has
+    no kernel, so it keeps only the plain version's fields (D, A, bcts,
+    own) and the kernel's are None."""
 
     D: int                    # digits
     A: int                    # widest digit (source limbs per digit)
     bcts: tuple               # per-digit rns.BaseConvTables (plain version)
     own: torch.Tensor         # [D, J] int32: digit d owns data limb j
-    pw: torch.Tensor          # [D, J, A] (Q_d/q_a) mod q_j, zero-padded
+    pw: torch.Tensor | None   # [D, J, A] (Q_d/q_a) mod q_j, zero-padded
     pw_shoup: torch.Tensor    # [D, J, A] Shoup word of pw for q_j
     mont: torch.Tensor        # [3, J] -q_j^-1 mod 2^32, 2^32 mod q_j, its
                               # Shoup word (the kernel's key product)
@@ -72,6 +78,13 @@ def make_fused_ks_tables(ctx, level: int) -> FusedKsTables:
     D = len(groups)
     A = max(len(g) for g in groups)
     own = np.zeros((D, J), dtype=np.int32)
+    for d, g in enumerate(groups):
+        own[d, list(g)] = 1
+    own_t = torch.from_numpy(own).to(ctx.device)
+    if ctx.word_bits == 64:
+        return FusedKsTables(D=D, A=A, bcts=bcts, own=own_t, pw=None,
+                             pw_shoup=None, mont=None, gather=None,
+                             inv_punc=None, inv_punc_shoup=None, src_q=None)
     pw = np.zeros((D, J, A), dtype=np.uint64)
     pw_sh = np.zeros((D, J, A), dtype=np.uint64)
     gather = np.zeros((D, A), dtype=np.int32)
@@ -82,7 +95,6 @@ def make_fused_ks_tables(ctx, level: int) -> FusedKsTables:
         S = 1
         for i in g:
             S *= ctx.moduli[i]
-        own[d, list(g)] = 1
         w = len(g)
         gather[d, :w] = g
         for a, i in enumerate(g):
@@ -101,8 +113,7 @@ def make_fused_ks_tables(ctx, level: int) -> FusedKsTables:
             [shoup((1 << 32) % q, q) for q in qs]]
     dev = ctx.device
     return FusedKsTables(
-        D=D, A=A, bcts=bcts, mont=word_tensor(mont, dev),
-        own=torch.from_numpy(own).to(dev),
+        D=D, A=A, bcts=bcts, mont=word_tensor(mont, dev), own=own_t,
         pw=word_tensor(pw, dev), pw_shoup=word_tensor(pw_sh, dev),
         gather=torch.from_numpy(gather.ravel()).to(dev),
         inv_punc=word_tensor(ipunc, dev), inv_punc_shoup=word_tensor(ipunc_sh, dev),
@@ -132,14 +143,30 @@ def _decompose_core(c, kt: NttTables, lt: NttTables, bcts, own_mask,
     return torch.where(own_mask, c_pad[..., None, :, :], tpoly)
 
 
+MAC_WORDS = 1 << 26     # int64 key-MAC products formed at once
+
+
 def _ks_mac_core(tpoly, kdata, kt: NttTables):
     """MAC over the digit axis (``evaluator._ks_mac_core``): tpoly
-    [..., D, l+k, N], kdata [2, D, l+k, N] -> [2, ..., l+k, N]."""
+    [..., D, l+k, N], kdata [2, D, l+k, N] -> [2, ..., l+k, N]. On the
+    int64 word the digits go in chunks of about MAC_WORDS products, each
+    folded into the sum with ``add_mod``: the exact products' transients
+    stay bounded, and the canonical sum is the JAX one."""
     D, nk, n = tpoly.shape[-3:]
     batch_ndim = tpoly.ndim - 3
     kdata = kdata.reshape(2, *(1,) * batch_ndim, D, nk, n)
-    prod = mul_mod(tpoly[None], kdata, kt.q)
-    return mod_sum(prod, kt.q, axis=-3)
+    if tpoly.dtype != torch.int64:
+        prod = mul_mod(tpoly[None], kdata, kt.q)
+        return mod_sum(prod, kt.q, axis=-3)
+    step = max(1, MAC_WORDS // (2 * tpoly[..., :1, :, :].numel()))
+    acc = None
+    for d in range(0, D, step):
+        prod = mul_mod(tpoly[None, ..., d:d + step, :, :],
+                       kdata[..., d:d + step, :, :], kt.q, kt.ratio0,
+                       kt.ratio1)
+        part = mod_sum(prod, kt.q, axis=-3)
+        acc = part if acc is None else add_mod(acc, part, kt.q)
+    return acc
 
 
 def switch_key_plain(c_ntt, kdata, lt, kt, ft: FusedKsTables):
@@ -157,7 +184,7 @@ def fused_switch_key(c_ntt: torch.Tensor, kdata: torch.Tensor,
     mod-down; equals ``_ks_mac_core(_decompose_core(...))``. ``cluster``
     forces the kernel's cluster size (one of ``cluster_sizes``)."""
     _check_cluster(kt.logn, cluster)
-    if c_ntt.device.type == "cpu":
+    if c_ntt.dtype == torch.int64 or c_ntt.device.type == "cpu":
         return switch_key_plain(c_ntt, kdata, lt, kt, ft)
     *lead, l, n = c_ntt.shape
     M = int(np.prod(lead)) if lead else 1
@@ -194,16 +221,20 @@ def ks_fused_args(c_coeff, c_ntt, kdata, kt: NttTables, ft: FusedKsTables,
 @dataclass(frozen=True)
 class FusedMdTables:
     """Constants for dividing NTT-form x[..., l+k, N] by P = prod of the k
-    trailing primes: the rns.ModDownTables, plus the output level."""
+    trailing primes: the rns.ModDownTables, plus the output level (the
+    kernel's Shoup words are None on a u64 chain, which has no kernel)."""
 
     mdt: rns.ModDownTables
     k: int
     l: int
-    punc_shoup: torch.Tensor     # [k, l] Shoup word of (P/p_i) mod q_j
-    p_mod_q_shoup: torch.Tensor  # [l, 1] Shoup word of P mod q_j
+    punc_shoup: torch.Tensor | None     # [k, l] Shoup word of (P/p_i) mod q_j
+    p_mod_q_shoup: torch.Tensor | None  # [l, 1] Shoup word of P mod q_j
 
 
 def make_fused_md_tables(mdt: rns.ModDownTables, kt: NttTables) -> FusedMdTables:
+    if kt.q.dtype == torch.int64:
+        return FusedMdTables(mdt=mdt, k=mdt.half_p.shape[0], l=kt.q.shape[0],
+                             punc_shoup=None, p_mod_q_shoup=None)
     q = to_numpy_u32(kt.q).ravel().astype(np.uint64)
     punc = to_numpy_u32(mdt.bct.punc_mod_dst).astype(np.uint64)
     pmodq = to_numpy_u32(mdt.p_mod_q).ravel().astype(np.uint64)
@@ -232,7 +263,7 @@ def fused_mod_down(x: torch.Tensor, t_sp: NttTables, t_q: NttTables,
     [0, k-1]). Returns [..., l, N]. ``cluster`` forces the kernel's cluster
     size (one of ``cluster_sizes``)."""
     _check_cluster(t_q.logn, cluster)
-    if x.device.type == "cpu":
+    if x.dtype == torch.int64 or x.device.type == "cpu":
         return mod_down_plain(x, t_sp, t_q, ft)
     *lead, lk, n = x.shape
     k, l = ft.k, ft.l

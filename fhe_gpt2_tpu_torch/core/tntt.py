@@ -13,8 +13,10 @@ by construction. It covers N = 2^11 ... 2^16 and any row count.
 [a, a+L) of a contiguous [..., L', N] tensor, read in place
 (``lead_stride``); the output is a new contiguous [..., L, N].
 
-Route: a CUDA tensor launches the kernel (or the wrapper raises); a CPU
-tensor runs the plain stage loop.
+Route: by word first, then by device. An int64 tensor (the u64 engine,
+which has no kernel, as the JAX package's has no Pallas path) runs the
+plain stage loop on any device; an int32 CUDA tensor launches the kernel
+(or the wrapper raises); an int32 CPU tensor runs the plain stage loop.
 """
 
 from __future__ import annotations
@@ -136,7 +138,7 @@ def ntt_args(x: torch.Tensor, t: NttTables, out: torch.Tensor, inverse: bool,
 def _transform(x: torch.Tensor, t: NttTables, cluster: int | None,
                inverse: bool) -> torch.Tensor:
     _check_cluster(t.logn, cluster)
-    if x.device.type == "cpu":
+    if x.dtype == torch.int64 or x.device.type == "cpu":
         return (_intt_stages if inverse else _ntt_stages)(x, t)
     *lead, L, n = x.shape
     if n != t.n or L != t.q.shape[0]:

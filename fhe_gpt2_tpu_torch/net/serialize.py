@@ -5,12 +5,11 @@ format: a magic, the lengths, a JSON header and a little-endian payload,
 zlib-compressed at level 6 through the native runtime (else the zlib
 module). A blob written by either package loads in the other.
 
-The port holds residues as int32 words. A blob states the JAX package's
-dtype, ``"uint32"``, over the same bytes: tensors are copied to the host
-and written as uint32, and a ``"uint32"`` payload is read back as int32
-words. A ``"uint64"`` payload (the JAX package's u64 engine, or a blob with
-no dtype) raises NotImplementedError: the port has no u64 engine yet
-(ROADMAP item 12).
+The port holds residues as int32 words (uint32 chains) or int64 words (u64
+chains). A blob states the JAX package's dtype over the same bytes:
+tensors are copied to the host and written as ``"uint32"`` or
+``"uint64"``, and a payload is read back into the tensor dtype with the
+same bits. A blob with no dtype is ``"uint64"``, as in the JAX loaders.
 
 The loaders take ``device=None``, which the JAX loaders do not: the tensors
 go where ``core.context.resolve_device`` says, the card unless the caller
@@ -29,10 +28,12 @@ import torch
 from ..core.context import CkksParams, resolve_device
 from ..core.evaluator import Ciphertext, expand_uniform
 from ..core.keys import GaloisKeys, KSwitchKey
-from ..core.modmath import to_numpy_u32
+from ..core.modmath import to_numpy_word
 from ..runtime import native
 
 MAGIC = b"CKTP"
+# Wire dtype -> (numpy word, tensor view of its bits).
+_WORDS = {"uint32": (np.uint32, np.int32), "uint64": (np.uint64, np.int64)}
 
 
 def _compress(b: bytes) -> bytes:
@@ -58,19 +59,19 @@ def _unpack(blob: bytes) -> tuple[dict, bytes]:
     return header, payload
 
 
-def _words(t: torch.Tensor) -> tuple[list, bytes]:
-    """(shape, bytes) of an int32 word tensor, written as uint32."""
-    arr = to_numpy_u32(t)
-    return list(arr.shape), arr.tobytes()
+def _words(t: torch.Tensor) -> tuple[list, bytes, str]:
+    """(shape, bytes, wire dtype) of a word tensor: int32 words are written
+    as uint32, int64 words as uint64."""
+    arr = to_numpy_word(t)
+    return list(arr.shape), arr.tobytes(), arr.dtype.name
 
 
 def _tensor(h: dict, payload: bytes, shape, device) -> torch.Tensor:
     dtype = h.get("dtype", "uint64")
-    if dtype != "uint32":
-        raise NotImplementedError(
-            f"{dtype} residues: the port has only the uint32 engine (the u64 "
-            "engine is ROADMAP item 12)")
-    arr = np.frombuffer(payload, dtype=np.uint32).view(np.int32)
+    if dtype not in _WORDS:
+        raise ValueError(f"{dtype} residues: a blob holds uint32 or uint64")
+    word, signed = _WORDS[dtype]
+    arr = np.frombuffer(payload, dtype=word).view(signed)
     return torch.from_numpy(arr.reshape(shape).copy()).to(
         resolve_device(device))
 
@@ -81,9 +82,9 @@ def _expect(h: dict, kind: str) -> None:
 
 
 def dump_ciphertext(ct: Ciphertext) -> bytes:
-    shape, data = _words(ct.data)
+    shape, data, dtype = _words(ct.data)
     return _pack({"kind": "ct", "scale": ct.scale, "shape": shape,
-                  "dtype": "uint32"}, data)
+                  "dtype": dtype}, data)
 
 
 def load_ciphertext(blob: bytes, device=None) -> Ciphertext:
@@ -98,9 +99,9 @@ def dump_ciphertext_seeded(ct: Ciphertext, seed: bytes) -> bytes:
     the wire size of fresh symmetric ciphertexts (before zlib)."""
     if ct.k != 2:
         raise ValueError("the seeded form is for fresh (k=2) ciphertexts")
-    _, data = _words(ct.data[0])
+    _, data, dtype = _words(ct.data[0])
     return _pack({"kind": "ct_seeded", "scale": ct.scale,
-                  "shape": list(ct.data.shape), "dtype": "uint32",
+                  "shape": list(ct.data.shape), "dtype": dtype,
                   "seed": seed.hex()}, data)
 
 
@@ -111,14 +112,14 @@ def load_ciphertext_seeded(blob: bytes, ctx) -> Ciphertext:
     shape = h["shape"]
     c0 = _tensor(h, payload, shape[1:], ctx.device)
     mods = [ctx.all_moduli[i] for i in range(shape[-2])]
-    c1 = expand_uniform(bytes.fromhex(h["seed"]), ctx.n, mods, np.uint32)
-    c1 = torch.from_numpy(c1.view(np.int32)).to(ctx.device)
+    c1 = expand_uniform(bytes.fromhex(h["seed"]), ctx.n, mods, ctx.word)
+    c1 = torch.from_numpy(c1.view(_WORDS[c1.dtype.name][1])).to(ctx.device)
     return Ciphertext(torch.stack([c0, c1]), h["scale"])
 
 
 def dump_kswitch_key(k: KSwitchKey) -> bytes:
-    shape, data = _words(k.data)
-    return _pack({"kind": "ksk", "shape": shape, "dtype": "uint32"}, data)
+    shape, data, dtype = _words(k.data)
+    return _pack({"kind": "ksk", "shape": shape, "dtype": dtype}, data)
 
 
 def load_kswitch_key(blob: bytes, device=None) -> KSwitchKey:
@@ -129,9 +130,9 @@ def load_kswitch_key(blob: bytes, device=None) -> KSwitchKey:
 
 def dump_galois_elt(elt: int, k: KSwitchKey) -> bytes:
     """One Galois key as its own frame (streaming upload granularity)."""
-    shape, data = _words(k.data)
+    shape, data, dtype = _words(k.data)
     return _pack({"kind": "gal_elt", "elt": int(elt), "shape": shape,
-                  "dtype": "uint32"}, data)
+                  "dtype": dtype}, data)
 
 
 def load_galois_elt(blob: bytes, device=None) -> tuple[int, KSwitchKey]:

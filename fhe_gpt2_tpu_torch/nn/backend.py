@@ -32,7 +32,7 @@ from ..core.context import CkksContext
 from ..core.evaluator import (
     Ciphertext, Decryptor, Encryptor, Evaluator, Plaintext, _scales_close,
     fake_bootstrap, stack_cts, unstack_cts)
-from ..core.modmath import mod_sum, mul_mod
+from ..core.modmath import add_mod, mod_sum, mul_mod
 
 # Terms per int64 product in the masked sums: bounds their transients to
 # MAC_CHUNK widened copies of one operand.
@@ -158,7 +158,7 @@ class RecordingBackend(PlainBackend):
 @dataclass
 class _ExtValue:
     """A rotated ciphertext held in the extended QP basis (double-hoisting
-    intermediate): data int32[2, ..., l+k, N] = P·(rotated ct)."""
+    intermediate): data words [2, ..., l+k, N] = P·(rotated ct)."""
 
     data: torch.Tensor
     scale: float
@@ -166,19 +166,29 @@ class _ExtValue:
 
 
 def _masked_sum(values: list[torch.Tensor], pts: list[torch.Tensor],
-                q: torch.Tensor) -> torch.Tensor:
+                t) -> torch.Tensor:
     """Σ_t values[t]·pts[t] mod q over [2, *B, l, N] operands and [l, N]
-    plaintexts: the JAX package's stacked ``mul_mod`` + ``mod_sum`` over the
-    term axis, in chunks of MAC_CHUNK terms (an int64 sum of the canonical
-    products, reduced once, is the same canonical residue)."""
+    plaintexts, with q and its Barrett words from the NTT tables t: the JAX
+    package's stacked ``mul_mod`` + ``mod_sum`` over the term axis, in
+    chunks of MAC_CHUNK terms. On the int32 word an int64 sum of the
+    canonical products, reduced once, is the same canonical residue; on the
+    int64 word (residues up to 2**62, whose sum of products would overflow)
+    each chunk folds with ``mod_sum`` and the chunks with ``add_mod``."""
+    q = t.q
+    wide = values[0].dtype == torch.int64
     acc = None
     for i in range(0, len(values), MAC_CHUNK):
         v = torch.stack(values[i:i + MAC_CHUNK], dim=1)        # [2, T, ...]
         p = torch.stack(pts[i:i + MAC_CHUNK])                  # [T, l, N]
         p = p.reshape(p.shape[0], *(1,) * (v.ndim - 4), *p.shape[1:])
-        part = mul_mod(v, p, q).long().sum(dim=1)
-        acc = part if acc is None else acc + part
-    return torch.remainder(acc, q).to(torch.int32)
+        prod = mul_mod(v, p, q, t.ratio0, t.ratio1)
+        if wide:
+            part = mod_sum(prod, q, axis=1)
+            acc = part if acc is None else add_mod(acc, part, q)
+        else:
+            part = prod.long().sum(dim=1)
+            acc = part if acc is None else acc + part
+    return acc if wide else torch.remainder(acc, q).to(torch.int32)
 
 
 @dataclass
@@ -370,7 +380,7 @@ class CkksBackend:
         cs = delta * self.ctx.rescale_divisor(lvl) / a0.scale
         acc = _masked_sum([v.data[..., :lvl, :] for v in values],
                           [self._plain(m, lvl, cs).data for m in masks],
-                          self.ctx.tables(lvl).q)
+                          self.ctx.tables(lvl))
         return self.ev.rescale_to_scale(Ciphertext(acc, a0.scale * cs), delta)
 
     def conjugate(self, a):
@@ -452,7 +462,7 @@ class CkksBackend:
         kt = self.ctx.tables(self.ctx.key_limbs(lvl))
         acc = _masked_sum([e.data for e in exts],
                           [self._plain_ext(m, lvl, cs).data for m in masks],
-                          kt.q)
+                          kt)
         out = self.ev.mod_down_ext(acc, lvl, e0.scale * cs)
         return self.ev.rescale_to_scale(out, delta)
 

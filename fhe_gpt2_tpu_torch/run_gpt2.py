@@ -61,8 +61,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--composite", action="store_true",
                     help="uint32 engine with composite two-prime scaling "
                          "(Δ = q·q′ ≈ 2^log_scale); --levels counts pairs. "
-                         "Without it the chain is u64, which the port does "
-                         "not have yet (the context raises)")
+                         "Without it the chain is u64 (50-bit q0, 40-bit "
+                         "scale; int64 PyTorch ops, no kernel)")
     ap.add_argument("--log-scale", type=int, default=50,
                     help="composite chain: Δ ≈ 2^log_scale, Q0 ≈ "
                          "2^(log_scale+5)")

@@ -47,11 +47,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--nsp", type=int, default=None,
                     help="special primes (hybrid key-switch digit size); "
-                         "default 3 (the port's chains are uint32)")
+                         "default 1 (u64) / 3 (w32, composite)")
     ap.add_argument("--word", type=int, default=64, choices=[32, 64],
                     help="engine word size. 32 = uint32 moduli (25-bit "
-                         "scale); 64 = u64 moduli, which the port does not "
-                         "have yet (the context raises)")
+                         "scale, the CUDA kernels); 64 = u64 moduli (51-bit "
+                         "q0, 46-bit scale, the reference's regime; int64 "
+                         "PyTorch ops, no kernel)")
     ap.add_argument("--composite", action="store_true",
                     help="uint32 engine with composite two-prime scaling "
                          "(Δ = q·q′ ≈ 2^50, Q0 ≈ 2^55). --levels counts "

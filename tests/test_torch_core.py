@@ -289,10 +289,15 @@ def test_context_tables_equal_reference(contexts):
 
 
 def test_context_rejects_u64_chain():
+    """A u64 chain now builds on int64 words; what the context rejects is a
+    modulus past the u64 engine's bound (2**62)."""
     params = CkksParams.create(logn=11, log_q0=50, log_scale=40, num_levels=2,
                                log_special=51)
-    with pytest.raises(NotImplementedError):
-        CkksContext(params, device=CPU)
+    assert CkksContext(params, device=CPU).dtype == torch.int64
+    too_wide = CkksParams(n=2048, moduli=params.moduli,
+                          special=((1 << 62) + 1,), scale=params.scale)
+    with pytest.raises(ValueError, match="2\\*\\*62"):
+        CkksContext(too_wide, device=CPU)
 
 
 def test_wrapper_refuses_foreign_device(single_tables):

@@ -679,3 +679,85 @@ def test_service_handlers_on_the_card_equal_cpu(cuda):
     assert a.scale == b.scale and torch.equal(a.data, b.data)
     got = np.real(dec.decrypt(S.load_ciphertext(S.dump_ciphertext(a), cuda)))
     assert np.abs(got - (z * z + np.roll(z, -5))).max() < 1e-2
+
+
+# ---------------------------------------------------------------------------
+# The u64 engine on the card: int64 words on plain PyTorch ops, no kernel
+# ---------------------------------------------------------------------------
+
+def _u64_run(dev, logn):
+    """NTT/iNTT and modular products of random words, then keygen, encrypt,
+    multiply+relin (a key switch), rescale and rotate on test_params(logn,
+    4) on one device."""
+    from fhe_gpt2_tpu_torch.core.context import test_params
+    from fhe_gpt2_tpu_torch.core.modmath import mul_mod, mul_mod_shoup
+    ctx = CkksContext(test_params(logn, 4), device=dev)
+    t = ctx.tables(ctx.L)
+    rng = np.random.default_rng(logn)
+    x = word_tensor(np.stack([rng.integers(0, q, size=(2, ctx.n),
+                                           dtype=np.uint64)
+                              for q in t.moduli], axis=-2), dev,
+                    word=np.uint64)
+    fwd = nttmod.ntt(x, t)
+    out = {"ntt": fwd, "intt": nttmod.intt(fwd, t),
+           "mul_mod": mul_mod(x, fwd, t.q, t.ratio0, t.ratio1),
+           "mul_mod_shoup": mul_mod_shoup(x, t.roots[:, 5:6],
+                                          t.roots_shoup[:, 5:6], t.q)}
+    kg = KeyGenerator(ctx, seed=3)
+    ev = Evaluator(ctx, relin_key=kg.relin_key(),
+                   galois_keys=kg.galois_keys(steps=[1]))
+    z = np.random.default_rng(1).uniform(-1, 1, ctx.params.slots)
+    ct = Encryptor(ctx, secret=kg.secret, seed=4).encrypt(
+        ev.make_plain(z, ctx.params.scale, ctx.L))
+    mul = ev.multiply(ct, ct)
+    out.update(encrypt=ct.data, mul_relin=mul.data,
+               rescale=ev.rescale(mul).data, rotate1=ev.rotate(ct, 1).data)
+    dec = Decryptor(ctx, kg.secret)
+    res = ev.rescale(mul)
+    for k, o, want in (("rescale", res, z * z),
+                       ("rotate1", ev.rotate(ct, 1), np.roll(z, -1))):
+        assert np.abs(dec.decrypt(o) - want).max() < 1e-5, k
+    return out
+
+
+@pytest.mark.parametrize("logn", [12, 16])
+def test_u64_route_on_card_equals_cpu_and_launches_no_kernel(cuda, logn):
+    """The u64 route on CUDA tensors gives the CPU route's words for the
+    NTT, iNTT, mul_mod, mul_mod_shoup, a key switch, a rescale and a
+    rotation, and no int64 operand reaches a kernel."""
+    before = dict(_cuda.LAUNCHES)
+    got = _u64_run(cuda, logn)
+    torch.cuda.synchronize()
+    assert dict(_cuda.LAUNCHES) == before
+    want = _u64_run("cpu", logn)
+    for k, v in want.items():
+        assert got[k].is_cuda and got[k].dtype == torch.int64, k
+        assert torch.equal(got[k].cpu(), v), k
+
+
+def test_kernels_refuse_int64_operands(cuda):
+    """A wrong route fails loudly: the kernels' operand check takes int32
+    only."""
+    x = torch.zeros((1, 2048), dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        _cuda.check_operand(x, "x")
+
+
+def test_seal_vectors_on_card(cuda):
+    """SEAL's square+relin+rescale and rotate-by-1, on the card, equal to
+    SEAL's coefficient dumps word for word."""
+    from torch_seal_common import seal_session, to_coeff
+    before = dict(_cuda.LAUNCHES)
+    v, ctx, ev, dec, load_ct, L = seal_session(cuda)
+    ct = load_ct("ct_in", L)
+    sq = ev.rescale(ev.square(ct))
+    rot = ev.rotate(ct, 1)
+    assert sq.data.is_cuda and sq.data.dtype == torch.int64
+    assert np.array_equal(to_coeff(ctx, sq.data, L - 1),
+                          np.stack([v["ct_sq_c0"], v["ct_sq_c1"]]))
+    assert np.array_equal(dec.decrypt_to_rns(sq), v["plain_sq"])
+    assert np.array_equal(to_coeff(ctx, rot.data, L),
+                          np.stack([v["ct_rot_c0"], v["ct_rot_c1"]]))
+    assert np.array_equal(dec.decrypt_to_rns(rot), v["plain_rot"])
+    torch.cuda.synchronize()
+    assert dict(_cuda.LAUNCHES) == before

@@ -10,6 +10,7 @@ read the same header and payload from either. The PIR answers are
 
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 from fhe_gpt2_tpu.core.evaluator import Ciphertext as JCiphertext
@@ -142,20 +143,25 @@ def test_seeded_ciphertext_crosses(setup):
 @pytest.mark.parametrize("header", [{"dtype": "uint64"}, {}])
 def test_uint64_blob_raises(header):
     """A u64-engine blob (or one without a dtype, which the JAX loaders
-    read as uint64) names the missing engine."""
-    arr = np.zeros((2, 3, 512), dtype=np.uint64)
+    read as uint64) loads into int64 words with the same bits, now that the
+    port has the u64 engine; a blob of any other dtype raises."""
+    arr = np.arange(2 * 3 * 512, dtype=np.uint64).reshape(2, 3, 512) << 40
     blob = JS._pack({"kind": "ct", "scale": 1.0, "shape": list(arr.shape),
                      **header}, arr.tobytes())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        S.load_ciphertext(blob, CPU)
+    ct = S.load_ciphertext(blob, CPU)
+    assert ct.data.dtype == torch.int64
+    assert np.array_equal(carry.to_numpy(ct), arr)
+    key = np.full((1, 2, 5, 512), (1 << 63) + 7, dtype=np.uint64)
     ksk = JS._pack({"kind": "ksk", "shape": [1, 2, 5, 512], **header},
-                   np.zeros((1, 2, 5, 512), dtype=np.uint64).tobytes())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        S.load_kswitch_key(ksk, CPU)
+                   key.tobytes())
+    assert np.array_equal(carry.to_numpy(S.load_kswitch_key(ksk, CPU)), key)
     # A JAX u64 ciphertext, as the JAX package writes it.
     jblob = JS.dump_ciphertext(JCiphertext(jnp.asarray(arr), 1.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        S.load_ciphertext(jblob, CPU)
+    assert np.array_equal(carry.to_numpy(S.load_ciphertext(jblob, CPU)), arr)
+    bad = JS._pack({"kind": "ct", "scale": 1.0, "shape": list(arr.shape),
+                    "dtype": "int16"}, arr.astype(np.int16).tobytes())
+    with pytest.raises(ValueError, match="int16"):
+        S.load_ciphertext(bad, CPU)
 
 
 def _keys_for(s, steps):

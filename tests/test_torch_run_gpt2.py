@@ -20,6 +20,8 @@ from fhe_gpt2_tpu import run_gpt2 as jrun
 
 from fhe_gpt2_tpu_torch import run_gpt2 as run
 
+from torch_port_common import single_torch_thread  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 
 
@@ -118,3 +120,28 @@ def test_chip_smoke_gpt2_plain_at_small_size():
     # 12 matmuls of 2·32 − 1 diagonals on one ciphertext.
     assert net["masks"] == 12 * 63
     assert np.isfinite(net["plain"]).all()
+
+
+def test_u64_default_session_at_the_tiny_shape():
+    """Without --composite the chain is the JAX driver's u64 one (q0 50
+    bits, 40-bit scale, 51-bit special, h=64): a session at the drivers'
+    default tiny shape (1 layer, 32 wide, 4 heads, 1024 slots) on the
+    CPU, 8 levels, whose encryption of the embedded activations is int64
+    words and decrypts back. (One encrypted block on this chain takes
+    minutes on a CPU host: the card runs the u64 engine, chip_smoke.py
+    phase 9.)"""
+    from fhe_gpt2_tpu.core.context import CkksParams as JParams
+    a = run.parse_args(["--cpu", "--layers", "1", "--logn", "11",
+                        "--levels", "8", "--weights", "synthetic"])
+    assert not a.composite and a.nsp == 1
+    m = run.load_model(a)
+    ses = run.build_session(a, m)
+    want = JParams.create(logn=11, log_q0=50, log_scale=40, num_levels=8,
+                          log_special=51, num_special=1, hamming_weight=64)
+    assert vars(ses.ctx.params) == vars(want)
+    assert ses.ctx.dtype == torch.int64
+    packed = m.sh.act.pack(m.emb)
+    cts = [ses.B.from_slots(v) for v in packed]
+    assert all(c.data.dtype == torch.int64 for c in cts)
+    back = np.stack([ses.B.to_slots(c) for c in cts])
+    assert np.abs(back - np.stack(packed)).max() < 1e-6

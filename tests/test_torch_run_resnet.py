@@ -23,6 +23,8 @@ from fhe_gpt2_tpu.cnn import resnet as jR
 from fhe_gpt2_tpu_torch import run_resnet as run
 from fhe_gpt2_tpu_torch.cnn import resnet as R
 
+from torch_port_common import single_torch_thread  # noqa: F401
+
 WEIGHTS = dict(seed=0, block_scale=0.24)
 SIDE = 8                      # image side the drivers run at here
 
@@ -127,3 +129,46 @@ def test_chip_smoke_resnet_plain_at_small_size():
     assert net["pre_relu_max"] < 0.9
     assert np.argmax(net["plain"]) == np.argmax(net["want"])
     assert np.abs(net["plain"] - net["want"]).max() < 0.01
+
+
+def test_u64_default_session_on_the_crop(monkeypatch):
+    """The default flags (--word 64, no --composite) on the CPU: the JAX
+    driver's u64 chain (q0 51 bits, 46-bit scale, 51-bit special, one
+    special prime), and a session on the 8x8 crop's plans (1024 slots,
+    logN=11, 4 levels, digit keys) that encrypts the packed image into
+    int64 words and decrypts it back."""
+    from fhe_gpt2_tpu.core.context import CkksParams as JParams
+    a = run.parse_args(["--cpu", "--logn", "11", "--levels", "4",
+                        "--digit-keys"])
+    assert (a.word, a.composite, a.nsp) == (64, False, 1)
+    params = run.make_params(a)
+    want = JParams.create(logn=11, log_q0=51, log_scale=46, num_levels=4,
+                          log_special=51, num_special=1, hamming_weight=192)
+    assert vars(params) == vars(want)
+    # The driver's sign at --sign-log2-err -10 (its cache file is there).
+    from fhe_gpt2_tpu_torch.approx.minimax import dp_schedule
+    from fhe_gpt2_tpu_torch.nn import kernels as K
+    sign = K.SignPlans.from_composite(dp_schedule(target_err=2.0 ** -10,
+                                                  eps=2.0 ** -8))
+    rp = R.build_resnet_plans(_weights(), 20, 1024, h=SIDE, sign=sign)
+    img = np.random.default_rng(0).uniform(-1, 1, (3, SIDE, SIDE))
+    ses = run.build_session(a, rp, img)
+    assert ses.ctx.dtype == torch.int64 and ses.ctx.device.type == "cpu"
+    packed = R.pack_input(rp, img)
+    cts = [ses.B.from_slots(v) for v in packed]
+    assert all(c.data.dtype == torch.int64 for c in cts)
+    assert cts[0].level == run.input_level(a, ses.ctx) == 4
+    back = np.stack([ses.B.to_slots(c) for c in cts])
+    assert np.abs(back - np.stack(packed)).max() < 1e-6
+
+
+def test_u64_help_names_the_engine():
+    """--word's help describes both words; nothing says the port lacks
+    the u64 engine."""
+    import io
+    from contextlib import redirect_stdout
+    buf = io.StringIO()
+    with redirect_stdout(buf), pytest.raises(SystemExit):
+        run.parse_args(["--help"])
+    text = " ".join(buf.getvalue().split())
+    assert "64 = u64 moduli" in text and "does not have" not in text

@@ -1,8 +1,9 @@
 """Shared set-up of the port's network tests (tests/test_torch_net.py,
 tests/test_torch_service.py).
 
-``build`` makes both packages on one uint32 chain (logN=9, three scale
-primes, the chain tests/test_net.py runs on the JAX package's u64 engine):
+``build`` makes both packages on one chain: by default a uint32 chain
+(logN=9, three scale primes, the shape of the chain tests/test_net.py runs
+on the JAX package's u64 engine), or ``U64_CHAIN``, that u64 chain itself:
 the JAX context, keys (seed 2: relinearization and the Galois keys of
 ``steps``), encryptor (seed 3), decryptor and backend, and the port's
 context, evaluator, decryptor and backend on the CPU over the same keys,
@@ -22,10 +23,13 @@ from torch_port_common import (CPU, JCkksBackend, JContext, JEncryptor,
 
 CHAIN = dict(logn=9, log_q0=29, log_scale=25, num_levels=3, log_special=31,
              num_special=2, hamming_weight=16)
+# tests/test_net.py's own chain, on the u64 engine (tests/test_torch_u64_net.py).
+U64_CHAIN = dict(logn=9, log_q0=50, log_scale=40, num_levels=3,
+                 log_special=51, hamming_weight=16)
 
 
-def build(steps=(1,)):
-    jp = JParams.create(**CHAIN)
+def build(steps=(1,), chain=CHAIN):
+    jp = JParams.create(**chain)
     jctx = JContext(jp)
     kg = JKeyGenerator(jctx, seed=2)
     jev = fast_encoding(JEvaluator(jctx, relin_key=kg.relin_key(),
@@ -33,7 +37,7 @@ def build(steps=(1,)):
     jenc = JEncryptor(jctx, secret=kg.secret, seed=3)
     jdec = JDecryptor(jctx, kg.secret)
     jB = JCkksBackend(ctx=jctx, ev=jev)
-    ctx = CkksContext(CkksParams.create(**CHAIN), device=CPU)
+    ctx = CkksContext(CkksParams.create(**chain), device=CPU)
     ev = Evaluator(
         ctx,
         relin_key=carry.kswitch_key_from_reference(
