@@ -24,6 +24,7 @@ mpmath) is imported only to make a set the cache lacks.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -82,13 +83,16 @@ def _mod_raise_core2(x, t_base, t_full, q0_img, consts):
 
 def mod_raise(ctx, ct: Ciphertext) -> Ciphertext:
     """Raise a ciphertext at the base level (one limb, or the composite
-    base pair) to the full chain, relabelled at scale Q0."""
+    base pair) to the full chain, relabelled at scale Q0. On a limb axis
+    every position reads the base limbs (``with_trailing``) and raises
+    into its own."""
     Q0 = ctx.q0_int
     L = ctx.L
     t_full = ctx.tables(L)
-    q0_img = word_tensor(ctx.const_residues(Q0, tuple(range(L))), ctx.device,
-                         word=ctx.word)
-    data = ct.data.contiguous()
+    q0_img = word_tensor(ctx.const_residues(Q0, ctx.data_limbs(L)),
+                         ctx.device, word=ctx.word)
+    data = ctx.with_trailing(ct.data.contiguous(), ctx.base_limbs,
+                             ctx.base_limbs)
     if ctx.base_limbs == 1:
         raised = _mod_raise_core(data, ctx.tables((0,)), t_full, q0_img,
                                  Q0 >> 1)
@@ -98,7 +102,7 @@ def mod_raise(ctx, ct: Ciphertext) -> Ciphertext:
         raised = _mod_raise_core2(
             data, ctx.tables((0, 1)), t_full, q0_img,
             (q0a, q0b, pow(q0a, -1, q0b), Q0 >> 1))
-    return Ciphertext(raised, float(Q0))
+    return Ciphertext(raised, float(Q0), L)
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +254,14 @@ class Bootstrapper:
                              for i in range(int(math.log2(rep)))]
         self._i_vec = np.full(self.n, 1j)
         self._neg_i_vec = np.full(self.n, -1j)
+
+    def on(self, backend) -> "Bootstrapper":
+        """This bootstrapper on another backend over the same chain (a mesh
+        position's, ``parallel/mesh.py``): the FFT plans, the EvalMod
+        polynomials and their host masks are shared, not rebuilt."""
+        out = copy.copy(self)
+        out.B, out.ctx = backend, backend.ctx
+        return out
 
     def _plan(self, diag: dict, name: str):
         rep = self.n // self.ns

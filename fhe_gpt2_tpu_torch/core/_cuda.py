@@ -12,7 +12,8 @@ loaded with ctypes; every pointer and the stream are ``c_void_p``, every
 C entry returns ``cudaGetLastError()`` and ``check`` raises if it is not 0.
 
 Nothing here runs at import: the first kernel launch builds and loads.
-``LAUNCHES`` counts, per kernel, the calls that launched it on the card;
+``LAUNCHES`` counts, per kernel, the calls that launched it on the card
+(``count``, under a lock: a mesh launches from one thread per position);
 the plain versions never touch it.
 """
 
@@ -23,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -41,7 +43,7 @@ _ENTRIES = {
         "ntt_inverse": "ppppppp" + "l" + "i" * 5 + "p",
     },
     "keyswitch": {
-        "ks_fused": "p" * 15 + "i" * 8 + "p",
+        "ks_fused": "p" * 16 + "i" * 8 + "p",
     },
     "moddown": {
         "md_fused": "p" * 18 + "i" * 6 + "p",
@@ -51,11 +53,19 @@ _ENTRIES = {
 LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "keyswitch": 0, "moddown": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()      # LAUNCHES and the first build and load
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count(kernel: str) -> None:
+    """Add one launch of `kernel` to LAUNCHES."""
+    with _LOCK:
+        LAUNCHES[kernel] += 1
 
 
 def _source_hash() -> str:
@@ -127,18 +137,23 @@ def load(path: Path, name: str) -> ctypes.CDLL:
 
 
 def _lib(name: str) -> ctypes.CDLL:
-    if name not in _libs:
-        _libs[name] = load(build()[name], name)
-    return _libs[name]
+    with _LOCK:
+        if name not in _libs:
+            _libs[name] = load(build()[name], name)
+        return _libs[name]
 
 
 def call(lib: str, fn: str, *args, cdll: ctypes.CDLL | None = None) -> None:
-    """Launch one C entry on the current stream; raise if it reports an
-    error. Tensors are passed by data pointer, the stream last. ``cdll``
-    takes the entry from another build of csrc/<lib>.cu than this tree's."""
+    """Launch one C entry on the device of its first tensor argument, made
+    the current device for the launch, and on this thread's current stream
+    of that device; raise if it reports an error. Tensors are passed by data
+    pointer, the stream last. ``cdll`` takes the entry from another build of
+    csrc/<lib>.cu than this tree's."""
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(cdll or _lib(lib), fn)(*conv, stream)
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    entry = getattr(cdll or _lib(lib), fn)
+    with torch.cuda.device(dev):
+        rc = entry(*conv, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {lib}.{fn} failed: error {rc}")
 

@@ -207,20 +207,49 @@ class CkksContext:
         return float(math.prod(
             self.moduli[level - self.rescale_limbs: level]))
 
+    # -- the limbs held here ------------------------------------------------
+    #
+    # A context holds every limb; a mesh position's view of it
+    # (``parallel/limbs.py``) holds some of them on a limb axis and
+    # overrides these three. Every table accessor below that takes a level
+    # answers for ``data_limbs(level)``.
+
+    def data_limbs(self, level: int) -> tuple[int, ...]:
+        """The chain limbs below `level` whose rows a ciphertext at that
+        level holds here, in row order: all of them."""
+        return tuple(range(level))
+
+    def gather_limbs(self, x: torch.Tensor, level: int) -> torch.Tensor:
+        """x[..., rows, N] at `level` with every limb below the level, in
+        chain order: x itself here (an all-gather on a limb axis)."""
+        return x
+
+    def with_trailing(self, x: torch.Tensor, level: int,
+                      g: int) -> torch.Tensor:
+        """x's rows below level - g followed by the g trailing limbs of the
+        level (what a rescale divides by): x itself here (a broadcast from
+        the positions that hold them on a limb axis)."""
+        return x
+
     # -- table accessors ----------------------------------------------------
 
     def tables(self, limbs: tuple[int, ...] | int) -> nttmod.NttTables:
-        """NTT tables for a limb index set. ``int`` means limbs 0..l-1."""
+        """NTT tables for a limb index set. ``int`` means the limbs held
+        below that level (``data_limbs``)."""
         if isinstance(limbs, int):
-            limbs = tuple(range(limbs))
+            limbs = self.data_limbs(limbs)
         key = tuple(limbs)
         if key not in self._level_tables:
             self._level_tables[key] = self.ntt_all.slice(list(key))
         return self._level_tables[key]
 
+    def _held(self, level: int) -> list[int]:
+        return [self.moduli[i] for i in self.data_limbs(level)]
+
     def key_limbs(self, level: int) -> tuple[int, ...]:
-        """Key-switching limb set at `level`: q_0..q_{level-1} + specials."""
-        return tuple(range(level)) + tuple(
+        """Key-switching limb set at `level`: the data limbs held below it
+        (q_0..q_{level-1}) + specials."""
+        return self.data_limbs(level) + tuple(
             self.L + i for i in range(self.k_sp))
 
     # -- hybrid key-switch digit structure (alpha = number of specials) -----
@@ -251,7 +280,7 @@ class CkksContext:
     def drop_last_tables(self, level: int) -> rns.DropLastTables:
         """Rescale tables: divide by q_{level-1}, keep q_0..q_{level-2}."""
         return self._cached(("drop", level), lambda: rns.make_drop_last(
-            self.moduli[: level - 1], self.moduli[level - 1], self.device,
+            self._held(level - 1), self.moduli[level - 1], self.device,
             self.word))
 
     def rescale_pair_tables(self, level: int) -> rns.ModDownTables:
@@ -259,20 +288,20 @@ class CkksContext:
         rescale_limbs primes in one fast base conversion."""
         g = self.rescale_limbs
         return self._cached(("pair", level), lambda: rns.make_mod_down(
-            self.moduli[: level - g], self.moduli[level - g: level],
+            self._held(level - g), self.moduli[level - g: level],
             self.device, self.word))
 
     def mod_down_onestep_tables(self, level: int) -> rns.ModDownTables:
         """One-shot key-switch mod-down: divide by P = prod(special)."""
         return self._cached(("onestep", level), lambda: rns.make_mod_down(
-            self.moduli[:level], self.special, self.device, self.word))
+            self._held(level), self.special, self.device, self.word))
 
     def mod_down_tables(self, level: int, sp: int = 0) -> rns.DropLastTables:
         """Exact drop of special prime `sp`, keeping q_0..q_{level-1} +
         specials 0..sp-1 (the per-prime mod-down the one-shot form
         replaces; specials drop last to first)."""
         return self._cached(("drop_sp", level, sp), lambda: rns.make_drop_last(
-            self.moduli[:level] + self.special[:sp], self.special[sp],
+            self._held(level) + self.special[:sp], self.special[sp],
             self.device, self.word))
 
     def fused_md_tables(self, level: int, pair: bool = False):

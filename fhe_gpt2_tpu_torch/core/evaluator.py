@@ -42,18 +42,23 @@ from .rns import DropLastTables
 
 @dataclass
 class Ciphertext:
-    """RNS-CKKS ciphertext. data: [k, *batch, l, N] words in NTT form."""
+    """RNS-CKKS ciphertext. data: [k, *batch, l, N] words in NTT form: the
+    rows of the limbs below `level` that its context holds
+    (``ctx.data_limbs``), all l = level of them unless the context is a
+    mesh position's view (``parallel/limbs.py``), so level defaults to the
+    row count."""
 
     data: torch.Tensor
     scale: float
+    level: int | None = None
+
+    def __post_init__(self):
+        if self.level is None:
+            self.level = self.data.shape[-2]
 
     @property
     def k(self) -> int:
         return self.data.shape[0]
-
-    @property
-    def level(self) -> int:
-        return self.data.shape[-2]
 
     @property
     def batch(self) -> tuple:
@@ -62,14 +67,16 @@ class Ciphertext:
 
 @dataclass
 class Plaintext:
-    """Encoded plaintext. data: [l, N] words in NTT form."""
+    """Encoded plaintext. data: [l, N] words in NTT form; level as a
+    Ciphertext's."""
 
     data: torch.Tensor
     scale: float
+    level: int | None = None
 
-    @property
-    def level(self) -> int:
-        return self.data.shape[-2]
+    def __post_init__(self):
+        if self.level is None:
+            self.level = self.data.shape[-2]
 
 
 def _scales_close(a: float, b: float, tol=1e-6):
@@ -99,14 +106,17 @@ class Evaluator:
 
     # -- encoding -----------------------------------------------------------
 
+    def _host_coeffs(self, values, scale: float) -> np.ndarray:
+        """The canonical-embedding rounding of a slot vector on the host
+        (numpy float64, or the native runtime): int64 coefficients [N]."""
+        return embedding.encode_to_coeffs(values, scale, self.ctx)
+
     def _encode(self, values, scale: float, t) -> torch.Tensor:
         """Coefficient-form residues of a slot vector over the limbs of
-        tables t, as the JAX package's ``embedding.encode`` gives them. The
-        canonical-embedding rounding runs on the host (numpy float64); the
-        reduction modulo every limb is one exact int64 remainder on
-        ctx.device, in the chain's word."""
-        coeffs = torch.from_numpy(
-            embedding.encode_to_coeffs(values, scale, self.ctx))
+        tables t, as the JAX package's ``embedding.encode`` gives them: the
+        host coefficients, reduced modulo every limb by one exact int64
+        remainder on ctx.device, in the chain's word."""
+        coeffs = torch.from_numpy(self._host_coeffs(values, scale))
         return torch.remainder(coeffs.to(self.ctx.device)[None, :],
                                t.q.long()).to(t.q.dtype)
 
@@ -114,7 +124,7 @@ class Evaluator:
         """Encode a slot vector (host) into an NTT-form plaintext."""
         t = self.ctx.tables(level)
         return Plaintext(data=nttmod.ntt(self._encode(values, scale, t), t),
-                         scale=scale)
+                         scale=scale, level=level)
 
     def decode_plain(self, pt: Plaintext, num_slots=None) -> np.ndarray:
         res = to_numpy_word(nttmod.intt(pt.data.contiguous(),
@@ -130,14 +140,17 @@ class Evaluator:
     def add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         assert a.level == b.level and _scales_close(a.scale, b.scale), (
             f"add: level/scale mismatch {a.level}/{a.scale} vs {b.level}/{b.scale}")
-        return Ciphertext(add_mod(a.data, b.data, self._t(a.level).q), a.scale)
+        return Ciphertext(add_mod(a.data, b.data, self._t(a.level).q), a.scale,
+                          a.level)
 
     def sub(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         assert a.level == b.level and _scales_close(a.scale, b.scale)
-        return Ciphertext(sub_mod(a.data, b.data, self._t(a.level).q), a.scale)
+        return Ciphertext(sub_mod(a.data, b.data, self._t(a.level).q), a.scale,
+                          a.level)
 
     def negate(self, a: Ciphertext) -> Ciphertext:
-        return Ciphertext(neg_mod(a.data, self._t(a.level).q), a.scale)
+        return Ciphertext(neg_mod(a.data, self._t(a.level).q), a.scale,
+                          a.level)
 
     def _with_c0(self, a: Ciphertext, c0: torch.Tensor) -> torch.Tensor:
         return torch.cat([c0[None], a.data[1:]])
@@ -146,42 +159,43 @@ class Evaluator:
         assert a.level == p.level and _scales_close(a.scale, p.scale)
         q = self._t(a.level).q
         return Ciphertext(self._with_c0(a, add_mod(a.data[0], p.data, q)),
-                          a.scale)
+                          a.scale, a.level)
 
     def sub_plain(self, a: Ciphertext, p: Plaintext) -> Ciphertext:
         assert a.level == p.level and _scales_close(a.scale, p.scale)
         q = self._t(a.level).q
         return Ciphertext(self._with_c0(a, sub_mod(a.data[0], p.data, q)),
-                          a.scale)
+                          a.scale, a.level)
 
     def _const(self, m: int, level: int) -> torch.Tensor:
-        return word_tensor(self.ctx.const_residues(m, tuple(range(level))),
-                           self.ctx.device, word=self.ctx.word)
+        return word_tensor(self.ctx.const_residues(
+            m, self.ctx.data_limbs(level)), self.ctx.device, word=self.ctx.word)
 
     def add_const(self, a: Ciphertext, value: float) -> Ciphertext:
         """a + value broadcast over slots (no level/scale cost)."""
         res = self._const(int(round(value * a.scale)), a.level)
         q = self._t(a.level).q
-        return Ciphertext(self._with_c0(a, add_mod(a.data[0], res, q)), a.scale)
+        return Ciphertext(self._with_c0(a, add_mod(a.data[0], res, q)),
+                          a.scale, a.level)
 
     def mul_const_int(self, a: Ciphertext, m: int) -> Ciphertext:
         """Multiply by an exact integer (scale unchanged)."""
         t = self._t(a.level)
         return Ciphertext(mul_mod(a.data, self._const(m, a.level), t.q,
-                                  t.ratio0, t.ratio1), a.scale)
+                                  t.ratio0, t.ratio1), a.scale, a.level)
 
     def mul_const(self, a: Ciphertext, value: float,
                   const_scale: Optional[float] = None) -> Ciphertext:
         """Multiply all slots by a real constant encoded at const_scale."""
         cs = const_scale if const_scale is not None else self.ctx.params.scale
         out = self.mul_const_int(a, int(round(value * cs)))
-        return Ciphertext(out.data, a.scale * cs)
+        return Ciphertext(out.data, a.scale * cs, a.level)
 
     def mul_plain(self, a: Ciphertext, p: Plaintext) -> Ciphertext:
         assert a.level == p.level
         t = self._t(a.level)
         return Ciphertext(mul_mod(a.data, p.data, t.q, t.ratio0, t.ratio1),
-                          a.scale * p.scale)
+                          a.scale * p.scale, a.level)
 
     def mul_vector(self, a: Ciphertext, values,
                    const_scale: Optional[float] = None) -> Ciphertext:
@@ -202,7 +216,8 @@ class Evaluator:
         d0 = mm(a.data[0], b.data[0])
         d1 = add_mod(mm(a.data[0], b.data[1]), mm(a.data[1], b.data[0]), q)
         d2 = mm(a.data[1], b.data[1])
-        out = Ciphertext(torch.stack([d0, d1, d2]), a.scale * b.scale)
+        out = Ciphertext(torch.stack([d0, d1, d2]), a.scale * b.scale,
+                         a.level)
         if relin:
             out = self.relinearize(out)
         return out
@@ -215,7 +230,8 @@ class Evaluator:
         ks = self._switch_key(a.data[2], a.level, self.relin_key)
         q = self._t(a.level).q
         return Ciphertext(torch.stack([add_mod(a.data[0], ks[0], q),
-                                       add_mod(a.data[1], ks[1], q)]), a.scale)
+                                       add_mod(a.data[1], ks[1], q)]), a.scale,
+                          a.level)
 
     # -- rescale / mod switch -----------------------------------------------
 
@@ -228,23 +244,25 @@ class Evaluator:
         assert a.level - g >= ctx.base_limbs, (
             "rescale at the chain floor: out of levels (bootstrap needed)")
         l = a.level
+        x = ctx.with_trailing(a.data.contiguous(), l, g)
         if g == 1:
-            data = _drop_last_core(a.data.contiguous(), ctx.tables(l - 1),
+            data = _drop_last_core(x, ctx.tables(l - 1),
                                    ctx.tables((l - 1,)),
                                    ctx.drop_last_tables(l))
         else:
             data = tks.fused_mod_down(
-                a.data.contiguous(), ctx.tables(tuple(range(l - g, l))),
-                ctx.tables(l - g),
+                x, ctx.tables(tuple(range(l - g, l))), ctx.tables(l - g),
                 ctx.fused_md_tables(l, pair=True))
         return Ciphertext(data, a.scale / float(
-            np.prod([ctx.moduli[i] for i in range(l - g, l)])))
+            np.prod([ctx.moduli[i] for i in range(l - g, l)])), l - g)
 
     def mod_switch_drop(self, a: Ciphertext, levels: int = 1) -> Ciphertext:
         """Drop limbs without scaling (mod_switch_to_next)."""
         assert a.level - levels >= 1
-        return Ciphertext(a.data[..., : a.level - levels, :].contiguous(),
-                          a.scale)
+        lv = a.level - levels
+        return Ciphertext(
+            a.data[..., : len(self.ctx.data_limbs(lv)), :].contiguous(),
+            a.scale, lv)
 
     def mod_switch_to(self, a: Ciphertext, level: int) -> Ciphertext:
         return self.mod_switch_drop(a, a.level - level) if a.level > level else a
@@ -262,12 +280,15 @@ class Evaluator:
     def _switch_key(self, c: torch.Tensor, level: int,
                     ksk: KSwitchKey) -> torch.Tensor:
         """Switch an NTT-form poly c[..., l, N] to the secret key basis.
-        Returns [2, ..., l, N], already mod-downed past the special primes."""
+        Returns [2, ..., l, N], already mod-downed past the special primes.
+        The base conversion reads every limb below the level
+        (``gather_limbs``); the key rows are the context's."""
         ctx = self.ctx
         ft = ctx.fused_ks_tables(level)
         key_limbs = ctx.key_limbs(level)
         acc = tks.fused_switch_key(
-            c.contiguous(), ksk.sliced(key_limbs, ft.D), ctx.tables(level),
+            ctx.gather_limbs(c.contiguous(), level),
+            ksk.sliced(key_limbs, ft.D), ctx.tables(tuple(range(level))),
             ctx.tables(key_limbs), ft)
         return self._mod_down_special(acc, level)
 
@@ -278,7 +299,7 @@ class Evaluator:
         ks = self._switch_key(permuted[1], a.level, self.galois_keys[galois_elt])
         q = self._t(a.level).q
         return Ciphertext(torch.stack([add_mod(permuted[0], ks[0], q), ks[1]]),
-                          a.scale)
+                          a.scale, a.level)
 
     def _hops(self, steps: int) -> list[int]:
         """Decompose a rotation into available key steps: one hop when the
@@ -314,10 +335,12 @@ class Evaluator:
         """(key tables, tpoly [..., D, l+k, N], D) of a's c1: the digit
         decomposition the hoisted rotations share, on the key-switch
         kernel's cached digit structure."""
-        ft = self.ctx.fused_ks_tables(a.level)
-        kt = self.ctx.tables(self.ctx.key_limbs(a.level))
-        return kt, tks._decompose_core(a.data[1], kt, self._t(a.level),
-                                       ft.bcts, (ft.own != 0)[..., None]), ft.D
+        ctx, l = self.ctx, a.level
+        ft = ctx.fused_ks_tables(l)
+        kt = ctx.tables(ctx.key_limbs(l))
+        return kt, tks._decompose_core(
+            ctx.gather_limbs(a.data[1], l), kt, ctx.tables(tuple(range(l))),
+            ft.bcts, (ft.own != 0)[..., None], ft.splice), ft.D
 
     def _hoisted_mac(self, tpoly, kt, elt: int, level: int, D: int):
         """Permute the shared digits by the automorphism and multiply-
@@ -348,7 +371,7 @@ class Evaluator:
                 self._hoisted_mac(tpoly, kt, elt, l, D), l)
             c0p = a.data[0].index_select(-1, ctx.galois_perm(elt))
             r = Ciphertext(torch.stack([add_mod(c0p, ks[0], q), ks[1]]),
-                           a.scale)
+                           a.scale, l)
             for h in hops[1:]:
                 r = self.apply_galois(r, ctx.galois_elt_from_step(h))
             out.append(r)
@@ -359,7 +382,7 @@ class Evaluator:
         special primes): the operand of the double-hoisted masked sums."""
         t = self.ctx.tables(self.ctx.key_limbs(level))
         return Plaintext(data=nttmod.ntt(self._encode(values, scale, t), t),
-                         scale=scale)
+                         scale=scale, level=level)
 
     def hoisted_rotations_ext(self, a: Ciphertext,
                               steps: list[int]) -> list[torch.Tensor]:
@@ -372,11 +395,12 @@ class Evaluator:
         l = a.level
         p_res, p_shoup = ctx.p_residues(l)
         q = self._t(l).q
+        r = q.shape[0]                      # the data rows held
 
         def lift(ct_data):
             """P·ct in the extended basis: the special-limb residues of P·x
             are exactly zero, since every special prime divides P."""
-            pc = mul_mod_shoup(ct_data, p_res[:l], p_shoup[:l], q)
+            pc = mul_mod_shoup(ct_data, p_res[:r], p_shoup[:r], q)
             pad = pc.new_zeros((*pc.shape[:-2], ctx.k_sp, pc.shape[-1]))
             return torch.cat([pc, pad], dim=-2)
 
@@ -397,9 +421,9 @@ class Evaluator:
             elt = ctx.galois_elt_from_step(s)
             acc = self._hoisted_mac(tpoly, kt, elt, l, D)
             c0p = a.data[0].index_select(-1, ctx.galois_perm(elt))
-            pc0 = mul_mod_shoup(c0p, p_res[:l], p_shoup[:l], q)
-            e0 = torch.cat([add_mod(acc[0][..., :l, :], pc0, q),
-                            acc[0][..., l:, :]], dim=-2)
+            pc0 = mul_mod_shoup(c0p, p_res[:r], p_shoup[:r], q)
+            e0 = torch.cat([add_mod(acc[0][..., :r, :], pc0, q),
+                            acc[0][..., r:, :]], dim=-2)
             out.append(torch.stack([e0, acc[1]]))
         return out
 
@@ -408,7 +432,7 @@ class Evaluator:
         """Divide an extended-basis accumulator [2, ..., l+k, N] by P (exact
         divide-and-round): the one deferred mod-down of double hoisting."""
         return Ciphertext(self._mod_down_special(data.contiguous(), level),
-                          scale)
+                          scale, level)
 
     def conjugate(self, a: Ciphertext) -> Ciphertext:
         return self.apply_galois(a, self.ctx.galois_elt_conjugate)
@@ -473,12 +497,13 @@ def stack_cts(cts: list[Ciphertext], axis: int = 0) -> Ciphertext:
     axis: [k, l, N] x B -> [k, B, l, N]."""
     assert all(_scales_close(c.scale, cts[0].scale) for c in cts)
     return Ciphertext(torch.stack([c.data for c in cts], dim=1 + axis),
-                      cts[0].scale)
+                      cts[0].scale, cts[0].level)
 
 
 def unstack_cts(ct: Ciphertext, axis: int = 0) -> list[Ciphertext]:
     """The ciphertexts of one batch axis, each a contiguous copy."""
-    return [Ciphertext(ct.data.select(1 + axis, i).contiguous(), ct.scale)
+    return [Ciphertext(ct.data.select(1 + axis, i).contiguous(), ct.scale,
+                       ct.level)
             for i in range(ct.data.shape[1 + axis])]
 
 

@@ -77,6 +77,9 @@ class KSwitchKey:
     """data[digit] = words [2, L+k, N] NTT form; digit j covers the limb
     group [j*alpha, (j+1)*alpha)."""
     data: torch.Tensor     # words [num_digits, 2, L+k, N]
+    # The chain limbs of data's rows where it holds only some (a mesh
+    # position's key rows, ``parallel/limbs.py``); None: all, in order.
+    limbs: tuple | None = None
     # Active digits/limbs per level in the kernel's [2, D, J, N] layout,
     # cut once and reused by every key switch at that level.
     _sliced: dict = field(default_factory=dict, repr=False, compare=False)
@@ -84,7 +87,9 @@ class KSwitchKey:
     def sliced(self, key_limbs: tuple, D: int) -> torch.Tensor:
         k = (key_limbs, D)
         if k not in self._sliced:
-            idx = torch.as_tensor(key_limbs, dtype=torch.long,
+            rows = (key_limbs if self.limbs is None
+                    else [self.limbs.index(j) for j in key_limbs])
+            idx = torch.as_tensor(rows, dtype=torch.long,
                                   device=self.data.device)
             self._sliced[k] = (self.data[:D].index_select(2, idx)
                                .transpose(0, 1).contiguous())

@@ -59,7 +59,13 @@ class FusedKsTables:
     D: int                    # digits
     A: int                    # widest digit (source limbs per digit)
     bcts: tuple               # per-digit rns.BaseConvTables (plain version)
-    own: torch.Tensor         # [D, J] int32: digit d owns data limb j
+    own: torch.Tensor         # [D, J] int32: digit d owns key row j
+    rows: torch.Tensor        # [J] int32: the row of c that key row j takes
+                              # where a digit owns it, its data limb (the
+                              # identity on one device; the special rows,
+                              # owned by no digit, hold l + i, never read)
+    splice: torch.Tensor | None   # int64 data limbs of the key rows, None
+                                  # where rows is the identity
     pw: torch.Tensor | None   # [D, J, A] (Q_d/q_a) mod q_j, zero-padded
     pw_shoup: torch.Tensor    # [D, J, A] Shoup word of pw for q_j
     mont: torch.Tensor        # [3, J] -q_j^-1 mod 2^32, 2^32 mod q_j, its
@@ -71,20 +77,29 @@ class FusedKsTables:
 
 
 def make_fused_ks_tables(ctx, level: int) -> FusedKsTables:
-    """From the context's digit structure (digit_groups/decomp_tables)."""
+    """From the context's digit structure (digit_groups/decomp_tables), for
+    its key rows at `level` (``key_limbs``: every data limb below the level
+    on one device, a mesh position's own on a limb axis, then the
+    specials)."""
     groups = ctx.digit_groups(level)
     bcts = ctx.decomp_tables(level)
-    J = len(ctx.key_limbs(level))
+    key = ctx.key_limbs(level)
+    J = len(key)
     D = len(groups)
     A = max(len(g) for g in groups)
-    own = np.zeros((D, J), dtype=np.int32)
-    for d, g in enumerate(groups):
-        own[d, list(g)] = 1
-    own_t = torch.from_numpy(own).to(ctx.device)
+    own = np.array([[j in g for j in key] for g in groups], dtype=np.int32)
+    rows = [j if j < ctx.L else level + j - ctx.L for j in key]
+    data = [j for j in key if j < ctx.L]
+    dev = ctx.device
+    tabs = dict(
+        D=D, A=A, bcts=bcts, own=torch.from_numpy(own).to(dev),
+        rows=torch.tensor(rows, dtype=torch.int32, device=dev),
+        splice=(None if rows == list(range(J))
+                else torch.tensor(data, dtype=torch.long, device=dev)))
     if ctx.word_bits == 64:
-        return FusedKsTables(D=D, A=A, bcts=bcts, own=own_t, pw=None,
-                             pw_shoup=None, mont=None, gather=None,
-                             inv_punc=None, inv_punc_shoup=None, src_q=None)
+        return FusedKsTables(**tabs, pw=None, pw_shoup=None, mont=None,
+                             gather=None, inv_punc=None, inv_punc_shoup=None,
+                             src_q=None)
     pw = np.zeros((D, J, A), dtype=np.uint64)
     pw_sh = np.zeros((D, J, A), dtype=np.uint64)
     gather = np.zeros((D, A), dtype=np.int32)
@@ -99,7 +114,7 @@ def make_fused_ks_tables(ctx, level: int) -> FusedKsTables:
         gather[d, :w] = g
         for a, i in enumerate(g):
             qa = ctx.moduli[i]
-            for jj, j in enumerate(ctx.key_limbs(level)):
+            for jj, j in enumerate(key):
                 qj = ctx.all_moduli[j]
                 pw[d, jj, a] = (S // qa) % qj
                 pw_sh[d, jj, a] = shoup(int(pw[d, jj, a]), qj)
@@ -107,26 +122,27 @@ def make_fused_ks_tables(ctx, level: int) -> FusedKsTables:
             ipunc[d, a, 0] = iv
             ipunc_sh[d, a, 0] = (iv << 32) // qa
             srcq[d, a, 0] = qa
-    qs = [ctx.all_moduli[j] for j in ctx.key_limbs(level)]
+    qs = [ctx.all_moduli[j] for j in key]
     mont = [[(-pow(q, -1, 1 << 32)) % (1 << 32) for q in qs],
             [(1 << 32) % q for q in qs],
             [shoup((1 << 32) % q, q) for q in qs]]
-    dev = ctx.device
     return FusedKsTables(
-        D=D, A=A, bcts=bcts, mont=word_tensor(mont, dev), own=own_t,
-        pw=word_tensor(pw, dev), pw_shoup=word_tensor(pw_sh, dev),
+        **tabs, mont=word_tensor(mont, dev), pw=word_tensor(pw, dev),
+        pw_shoup=word_tensor(pw_sh, dev),
         gather=torch.from_numpy(gather.ravel()).to(dev),
         inv_punc=word_tensor(ipunc, dev), inv_punc_shoup=word_tensor(ipunc_sh, dev),
         src_q=word_tensor(srcq, dev))
 
 
 def _decompose_core(c, kt: NttTables, lt: NttTables, bcts, own_mask,
-                    plain: bool = False):
+                    splice=None, plain: bool = False):
     """Hybrid digit decomposition of NTT-form c[..., l, N] into
-    tpoly[..., D, l+k, N] (``evaluator._decompose_core``): the expensive
-    half of a key switch, which the hoisted rotations share. Its iNTT and
-    NTT go through ``ntt_inverse``/``ntt_forward``, so a CUDA c launches
-    the NTT kernels; ``plain=True`` runs the stage loops on any device."""
+    tpoly[..., D, J, N] over the key rows of kt (``evaluator._decompose_core``,
+    where J = l+k): the expensive half of a key switch, which the hoisted
+    rotations share. A digit's own rows take c's rows ``splice`` (the key
+    rows' data limbs; c's rows in order where None). Its iNTT and NTT go
+    through ``ntt_inverse``/``ntt_forward``, so a CUDA c launches the NTT
+    kernels; ``plain=True`` runs the stage loops on any device."""
     intt, ntt = ((_intt_stages, _ntt_stages) if plain
                  else (ntt_inverse, ntt_forward))
     c_coeff = intt(c, lt)
@@ -135,11 +151,11 @@ def _decompose_core(c, kt: NttTables, lt: NttTables, bcts, own_mask,
         w = len(bct.src)
         digs.append(rns.base_convert(c_coeff[..., start:start + w, :], bct))
         start += w
-    tpoly = ntt(torch.stack(digs, dim=-3), kt)              # [..., D, l+k, N]
-    k_sp = tpoly.shape[-2] - c.shape[-2]
-    pad = torch.zeros((*c.shape[:-2], k_sp, c.shape[-1]), dtype=c.dtype,
-                      device=c.device)
-    c_pad = torch.cat([c, pad], dim=-2)
+    tpoly = ntt(torch.stack(digs, dim=-3), kt)              # [..., D, J, N]
+    own = c if splice is None else c.index_select(-2, splice)
+    pad = torch.zeros((*c.shape[:-2], tpoly.shape[-2] - own.shape[-2],
+                       c.shape[-1]), dtype=c.dtype, device=c.device)
+    c_pad = torch.cat([own, pad], dim=-2)
     return torch.where(own_mask, c_pad[..., None, :, :], tpoly)
 
 
@@ -173,16 +189,18 @@ def switch_key_plain(c_ntt, kdata, lt, kt, ft: FusedKsTables):
     """Plain version of ``fused_switch_key`` on any device."""
     own_mask = (ft.own != 0)[..., None]
     return _ks_mac_core(_decompose_core(c_ntt, kt, lt, ft.bcts, own_mask,
-                                        plain=True), kdata, kt)
+                                        ft.splice, plain=True), kdata, kt)
 
 
 def fused_switch_key(c_ntt: torch.Tensor, kdata: torch.Tensor,
                      lt: NttTables, kt: NttTables, ft: FusedKsTables,
                      cluster: int | None = None) -> torch.Tensor:
-    """Decompose + NTT + key MAC of NTT-form c_ntt[*B, l, N] against the
-    active key digits kdata[2, D, J, N]. Returns [2, *B, J, N] before the
-    mod-down; equals ``_ks_mac_core(_decompose_core(...))``. ``cluster``
-    forces the kernel's cluster size (one of ``cluster_sizes``)."""
+    """Decompose + NTT + key MAC of NTT-form c_ntt[*B, l, N] (every limb
+    below the level) against the active key digits kdata[2, D, J, N] of
+    the key rows of kt and ft (``ft.rows`` maps them to c's rows). Returns
+    [2, *B, J, N] before the mod-down; equals
+    ``_ks_mac_core(_decompose_core(...))``. ``cluster`` forces the kernel's
+    cluster size (one of ``cluster_sizes``)."""
     _check_cluster(kt.logn, cluster)
     if c_ntt.dtype == torch.int64 or c_ntt.device.type == "cpu":
         return switch_key_plain(c_ntt, kdata, lt, kt, ft)
@@ -193,14 +211,15 @@ def fused_switch_key(c_ntt: torch.Tensor, kdata: torch.Tensor,
     _cuda.check_operand(kdata, "kdata", (2, D, J, n))
     _check_aligned(c_ntt, "c_ntt")
     _check_aligned(kdata, "kdata")
-    if ft.own.shape != (D, J) or lt.q.shape[0] != l or kt.n != n:
+    if (ft.own.shape != (D, J) or ft.rows.shape != (J,)
+            or lt.q.shape[0] != l or kt.n != n):
         raise ValueError("key-switch tables do not match the operand level")
     log_c, threads = _geometry(kt.logn, M * J, c_ntt, cluster)
     c_coeff = ntt_inverse(c_ntt, lt)
     out = torch.empty((2, M, J, n), dtype=torch.int32, device=c_ntt.device)
     _cuda.call("keyswitch", "ks_fused", *ks_fused_args(
         c_coeff, c_ntt, kdata, kt, ft, out, log_c, threads))
-    _cuda.LAUNCHES["keyswitch"] += 1
+    _cuda.count("keyswitch")
     return out.reshape(2, *lead, J, n)
 
 
@@ -209,7 +228,8 @@ def ks_fused_args(c_coeff, c_ntt, kdata, kt: NttTables, ft: FusedKsTables,
     """The arguments of the C entry ``ks_fused`` but the stream, in its
     order; out is [2, M, J, N]."""
     M, J, l = out.shape[1], out.shape[2], c_ntt.shape[-2]
-    return (c_coeff, c_ntt, kdata, ft.own, ft.pw, ft.pw_shoup, ft.gather,
+    return (c_coeff, c_ntt, kdata, ft.own, ft.rows, ft.pw, ft.pw_shoup,
+            ft.gather,
             ft.inv_punc, ft.inv_punc_shoup, ft.src_q, kt.q, ft.mont, kt.roots,
             kt.roots_shoup, out, M, ft.D, ft.A, J, l, kt.logn, log_c, threads)
 
@@ -263,9 +283,12 @@ def fused_mod_down(x: torch.Tensor, t_sp: NttTables, t_q: NttTables,
     [0, k-1]). Returns [..., l, N]. ``cluster`` forces the kernel's cluster
     size (one of ``cluster_sizes``)."""
     _check_cluster(t_q.logn, cluster)
+    *lead, lk, n = x.shape
+    if ft.l == 0:
+        # A mesh position that holds no limb below the output level.
+        return x.new_empty((*lead, 0, n))
     if x.dtype == torch.int64 or x.device.type == "cpu":
         return mod_down_plain(x, t_sp, t_q, ft)
-    *lead, lk, n = x.shape
     k, l = ft.k, ft.l
     if lk != l + k or t_sp.q.shape[0] != k or t_q.n != n:
         raise ValueError(f"mod-down operand has {lk} limbs, tables {l}+{k}")
@@ -277,7 +300,7 @@ def fused_mod_down(x: torch.Tensor, t_sp: NttTables, t_q: NttTables,
     out = torch.empty((M, l, n), dtype=torch.int32, device=x.device)
     _cuda.call("moddown", "md_fused", *md_fused_args(a, x, t_q, ft, out,
                                                      log_c, threads))
-    _cuda.LAUNCHES["moddown"] += 1
+    _cuda.count("moddown")
     return out.reshape(*lead, l, n)
 
 

@@ -138,6 +138,9 @@ def ntt_args(x: torch.Tensor, t: NttTables, out: torch.Tensor, inverse: bool,
 def _transform(x: torch.Tensor, t: NttTables, cluster: int | None,
                inverse: bool) -> torch.Tensor:
     _check_cluster(t.logn, cluster)
+    if x.shape[-2] == 0:
+        # A mesh position that holds no limb at this level.
+        return torch.empty(x.shape, dtype=x.dtype, device=x.device)
     if x.dtype == torch.int64 or x.device.type == "cpu":
         return (_intt_stages if inverse else _ntt_stages)(x, t)
     *lead, L, n = x.shape
@@ -154,7 +157,7 @@ def _transform(x: torch.Tensor, t: NttTables, cluster: int | None,
     log_c, threads = _geometry(t.logn, out.numel() // n, x, cluster)
     _cuda.call("ntt", "ntt_inverse" if inverse else "ntt_forward",
                *ntt_args(x, t, out, inverse, log_c, threads))
-    _cuda.LAUNCHES["ntt_inv" if inverse else "ntt_fwd"] += 1
+    _cuda.count("ntt_inv" if inverse else "ntt_fwd")
     return out
 
 

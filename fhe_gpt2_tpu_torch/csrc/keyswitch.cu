@@ -5,10 +5,15 @@
 // limb in VMEM while it accumulates the base-conversion MAC, runs the
 // forward NTT, splices the digit's own limbs and multiplies by the key.
 // Here one thread-block cluster per (batch m, key limb j) does the same
-// with the limb in the cluster's shared memory (ntt_cluster.cuh). For each
+// with the limb in the cluster's shared memory (ntt_cluster.cuh). Key row j
+// is the chain's limb rows[j] (a data limb, or a special limb past c's l
+// rows): on one device rows is the identity; on a mesh position of a limb
+// axis the launch covers only the position's key rows (its data limbs and
+// the k special limbs), and c is the whole gathered polynomial. For each
 // digit d = 0..D-1:
 //
-//   own[d, j] set (data limb j of digit d):  poly = c_ntt[m, j]  (no NTT)
+//   own[d, j] set (data limb rows[j] of digit d):  poly = c_ntt[m, rows[j]]
+//                                                   (no NTT)
 //   otherwise:  t = sum_a ((c_coeff[m, gather[d, a]] * inv_punc[d, a])
 //                          mod src_q[d, a]) * pw[d, j, a]   mod q_j
 //               poly = NTT_j(t), t held across the cluster
@@ -29,8 +34,8 @@
 // shared memory and the two accumulators and the words of the digit in
 // registers (W words per thread).
 //
-// c_ntt is read only where digit d owns limb j, which holds only for data
-// limbs (j < l): the special limbs never read past c_ntt's l rows.
+// c_ntt is read only where digit d owns key row j, which holds only for data
+// limbs (rows[j] < l): the special rows never read past c_ntt's l rows.
 #include "ntt_cluster.cuh"
 
 namespace {
@@ -39,15 +44,16 @@ template <int W, int LC>
 __global__ void __launch_bounds__(kClusterThreads, cluster_ctas_per_sm(W))
     ks_fused_kernel(const uint32_t* __restrict__ ccoef, const uint32_t* __restrict__ cntt,
                     const uint32_t* __restrict__ key, const int* __restrict__ own,
-                    const uint32_t* __restrict__ pw, const uint32_t* __restrict__ pws,
-                    const int* __restrict__ gather, const uint32_t* __restrict__ ip,
-                    const uint32_t* __restrict__ ips, const uint32_t* __restrict__ srcq,
-                    const uint32_t* __restrict__ q, const uint32_t* __restrict__ mont,
-                    const uint32_t* __restrict__ roots, const uint32_t* __restrict__ roots_sh,
-                    uint32_t* __restrict__ out, int M, int D, int A, int J, int l, int logn) {
+                    const int* __restrict__ rows, const uint32_t* __restrict__ pw,
+                    const uint32_t* __restrict__ pws, const int* __restrict__ gather,
+                    const uint32_t* __restrict__ ip, const uint32_t* __restrict__ ips,
+                    const uint32_t* __restrict__ srcq, const uint32_t* __restrict__ q,
+                    const uint32_t* __restrict__ mont, const uint32_t* __restrict__ roots,
+                    const uint32_t* __restrict__ roots_sh, uint32_t* __restrict__ out, int M,
+                    int D, int A, int J, int l, int logn) {
   extern __shared__ uint32_t sh[];
   const int n = 1 << logn;
-  // Cluster m * J + j, last first: the special limbs (j >= l), which own no
+  // Cluster m * J + j, last first: the special limbs (the last k rows), which own no
   // digit and so run D NTTs instead of D - 1, start before the data limbs.
   const long long cid = (long long)M * J - 1 - (blockIdx.x >> LC);
   const int j = (int)(cid % J);
@@ -64,7 +70,7 @@ __global__ void __launch_bounds__(kClusterThreads, cluster_ctas_per_sm(W))
   for (int d = 0; d < D; ++d) {
     const uint32_t* kp = key + ((long long)d * J + j) * n + col0;
     if (own[d * J + j]) {
-      load_words<W>(cntt + (m * l + j) * n + col0, poly);
+      load_words<W>(cntt + (m * l + rows[j]) * n + col0, poly);
     } else {
 #pragma unroll
       for (int w = 0; w < W; ++w) poly[w] = 0;
@@ -102,17 +108,18 @@ __global__ void __launch_bounds__(kClusterThreads, cluster_ctas_per_sm(W))
 }  // namespace
 
 extern "C" int ks_fused(const void* ccoef, const void* cntt, const void* key, const void* own,
-                        const void* pw, const void* pws, const void* gather, const void* ip,
-                        const void* ips, const void* srcq, const void* q, const void* mont,
-                        const void* roots, const void* roots_sh, void* out, int M, int D,
-                        int A, int J, int l, int logn, int log_c, int threads, void* stream) {
+                        const void* rows, const void* pw, const void* pws, const void* gather,
+                        const void* ip, const void* ips, const void* srcq, const void* q,
+                        const void* mont, const void* roots, const void* roots_sh, void* out,
+                        int M, int D, int A, int J, int l, int logn, int log_c, int threads,
+                        void* stream) {
   return with_cluster_geometry(logn, log_c, threads, [&](auto w, auto lc) {
     constexpr int W = decltype(w)::value, LC = decltype(lc)::value;
     return launch_cluster(ks_fused_kernel<W, LC>, (long long)M * J, LC, threads,
                           sizeof(uint32_t) * W * threads, (cudaStream_t)stream,
                           (const uint32_t*)ccoef, (const uint32_t*)cntt, (const uint32_t*)key,
-                          (const int*)own, (const uint32_t*)pw, (const uint32_t*)pws,
-                          (const int*)gather, (const uint32_t*)ip, (const uint32_t*)ips,
+                          (const int*)own, (const int*)rows, (const uint32_t*)pw,
+                          (const uint32_t*)pws, (const int*)gather, (const uint32_t*)ip, (const uint32_t*)ips,
                           (const uint32_t*)srcq, (const uint32_t*)q, (const uint32_t*)mont,
                           (const uint32_t*)roots, (const uint32_t*)roots_sh, (uint32_t*)out, M,
                           D, A, J, l, logn);

@@ -28,7 +28,9 @@ without it.
 
 from __future__ import annotations
 
+import os
 import struct
+from collections import deque
 from concurrent import futures
 from dataclasses import dataclass, field
 from typing import Callable
@@ -186,14 +188,27 @@ class SecureInferenceClient:
 
     def init_session_stream(self, params, relin_key=None,
                             galois_keys=None) -> None:
-        """Streaming key upload: one bounded message per key component."""
+        """Streaming key upload: one bounded message per key component,
+        sent in order. The frames are serialized (zlib, which releases the
+        interpreter lock) on a pool of one thread per core, at most two per
+        thread ahead of the stream: the bytes are the sequential ones."""
+        jobs = [lambda: S.dump_params(params)]
+        if relin_key is not None:
+            jobs.append(lambda: S.dump_kswitch_key(relin_key))
+        if galois_keys is not None:
+            jobs += [lambda e=e: S.dump_galois_elt(e, galois_keys.keys[e])
+                     for e in sorted(galois_keys.keys)]
+
         def gen():
-            yield S.dump_params(params)
-            if relin_key is not None:
-                yield S.dump_kswitch_key(relin_key)
-            if galois_keys is not None:
-                for elt in sorted(galois_keys.keys):
-                    yield S.dump_galois_elt(elt, galois_keys.keys[elt])
+            workers = os.cpu_count() or 1
+            with futures.ThreadPoolExecutor(workers) as pool:
+                ahead = deque()
+                for job in jobs:
+                    ahead.append(pool.submit(job))
+                    if len(ahead) > 2 * workers:
+                        yield ahead.popleft().result()
+                while ahead:
+                    yield ahead.popleft().result()
         if self._init_stream(gen()) != b"ok":
             raise RuntimeError("InitSessionStream was refused")
 

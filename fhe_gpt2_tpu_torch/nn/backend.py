@@ -246,7 +246,7 @@ class CkksBackend:
                        for r in a.reshape(-1, self.slots)]
                 data = torch.stack([p.data for p in pts]).reshape(
                     *a.shape[:-1], *pts[0].data.shape)
-                out = Plaintext(data=data, scale=scale)
+                out = Plaintext(data=data, scale=scale, level=level)
             else:
                 out = self.ev.make_plain(a.ravel(), scale, level)
             self._store(key, v, out)
@@ -378,10 +378,12 @@ class CkksBackend:
         lvl = min(v.level for v in values)
         delta = self.ctx.params.scale
         cs = delta * self.ctx.rescale_divisor(lvl) / a0.scale
-        acc = _masked_sum([v.data[..., :lvl, :] for v in values],
-                          [self._plain(m, lvl, cs).data for m in masks],
-                          self.ctx.tables(lvl))
-        return self.ev.rescale_to_scale(Ciphertext(acc, a0.scale * cs), delta)
+        t = self.ctx.tables(lvl)
+        rows = t.q.shape[0]                 # the limbs below lvl held here
+        acc = _masked_sum([v.data[..., :rows, :] for v in values],
+                          [self._plain(m, lvl, cs).data for m in masks], t)
+        return self.ev.rescale_to_scale(Ciphertext(acc, a0.scale * cs, lvl),
+                                        delta)
 
     def conjugate(self, a):
         return self.ev.conjugate(a)
@@ -398,11 +400,11 @@ class CkksBackend:
     def take_batch(self, a, idx: tuple):
         """Gather over the batch axes (component axis 0 untouched)."""
         return Ciphertext(a.data[(slice(None),) + tuple(idx)].contiguous(),
-                          a.scale)
+                          a.scale, a.level)
 
     def reduce_sum_batch(self, a, axis: int = 0):
         return Ciphertext(mod_sum(a.data, self.ctx.tables(a.level).q,
-                                  axis=1 + axis), a.scale)
+                                  axis=1 + axis), a.scale, a.level)
 
     # -- double-hoisted LT path (see Evaluator.hoisted_rotations_ext) --------
 
@@ -421,7 +423,7 @@ class CkksBackend:
         out = {}
         for amounts, group in by_amounts.items():
             cts = [self.ev.mod_switch_to(srcs[s], lvl) for s in group]
-            uniform = (len({c.data.shape for c in cts}) == 1
+            uniform = (len({c.batch for c in cts}) == 1
                        and all(_scales_close(c.scale, cts[0].scale)
                                for c in cts))
             if len(group) == 1 or not uniform:
@@ -442,7 +444,7 @@ class CkksBackend:
         batched key switch (stack → rotate → unstack): the LT engine's giant
         step across destination accumulators."""
         if (len(values) == 1
-                or len({v.data.shape for v in values}) != 1
+                or len({(v.level, v.batch) for v in values}) != 1
                 or not all(_scales_close(v.scale, values[0].scale)
                            for v in values)):
             return [self.rotate(v, steps) for v in values]

@@ -761,3 +761,198 @@ def test_seal_vectors_on_card(cuda):
     assert np.array_equal(dec.decrypt_to_rns(rot), v["plain_rot"])
     torch.cuda.synchronize()
     assert dict(_cuda.LAUNCHES) == before
+
+
+# -- The mesh (parallel/): a position's key rows, the row map, the operand's
+# device ----------------------------------------------------------------------
+
+def _view(ctx, cuda, n_limb, pos):
+    from fhe_gpt2_tpu_torch.parallel.limbs import LimbView, tables_on
+    return LimbView(ctx, cuda, pos, n_limb,
+                    (tables_on(ctx.ntt_all, cuda), {}, {}))
+
+
+# (limb axis, position, level): full and narrow digits, and a position
+# that holds no data limb at its level (the empty data block).
+_BLOCKS = [(2, 0, 5), (2, 1, 5), (3, 2, 4), (2, 1, 1), (4, 3, 2)]
+
+
+@pytest.mark.parametrize("logn,cluster", _forced((11, 15, 16)))
+@pytest.mark.parametrize("n_limb,pos,level", _BLOCKS)
+@pytest.mark.parametrize("lead", [(), (2,)])
+def test_keyswitch_kernel_on_a_row_block_equals_plain(cuda, logn, cluster,
+                                                      n_limb, pos, level,
+                                                      lead):
+    """ks_fused on one position's key rows (the row map): equal to the
+    plain version with the same map, and to those rows of the whole
+    switch."""
+    ctx = _cached_ctx(cuda, False, logn)
+    view = _view(ctx, cuda, n_limb, pos)
+    rows = view.key_limbs(level)
+    vft, ft = view.fused_ks_tables(level), ctx.fused_ks_tables(level)
+    lt, kt = ctx.tables(level), ctx.tables(ctx.key_limbs(level))
+    rng = np.random.default_rng(level + 7 * pos)
+    c = _residues(rng, ctx.moduli[:level], lead, ctx.n, cuda)
+    kfull = _residues(rng, kt.moduli, (2, ft.D), ctx.n, cuda)
+    idx = torch.tensor([ctx.key_limbs(level).index(j) for j in rows],
+                       device=cuda)
+    kdata = kfull.index_select(2, idx).contiguous()
+    before = _cuda.LAUNCHES["keyswitch"]
+    got = tks.fused_switch_key(c, kdata, lt, view.tables(rows), vft,
+                               cluster=cluster)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["keyswitch"] == before + 1
+    assert got.shape == (2, *lead, len(rows), ctx.n)
+    assert torch.equal(got, tks.switch_key_plain(c, kdata, lt,
+                                                 view.tables(rows), vft))
+    whole = tks.fused_switch_key(c, kfull, lt, kt, ft, cluster=cluster)
+    assert torch.equal(got, whole.index_select(-2, idx))
+
+
+@pytest.mark.parametrize("logn,cluster", _forced((11, 15, 16)))
+@pytest.mark.parametrize("n_limb,pos,level", _BLOCKS)
+@pytest.mark.parametrize("lead", [(2,), (3, 2)])
+def test_moddown_kernel_on_a_position_rows_equals_plain(cuda, logn, cluster,
+                                                        n_limb, pos, level,
+                                                        lead):
+    """md_fused on one position's output rows (its tables sliced to them):
+    equal to the plain version and to those rows of the whole mod-down; an
+    empty block gives [.., 0, N] and launches nothing."""
+    ctx = _cached_ctx(cuda, False, logn)
+    view = _view(ctx, cuda, n_limb, pos)
+    sp = tuple(ctx.L + i for i in range(ctx.k_sp))
+    x = _residues(np.random.default_rng(level), ctx.moduli[:level]
+                  + ctx.special, lead, ctx.n, cuda)
+    keep = list(view.data_limbs(level))
+    xb = x.index_select(-2, torch.tensor(keep + list(range(level, level
+                                                          + ctx.k_sp)),
+                                         device=cuda)).contiguous()
+    args = (ctx.tables(sp), view.tables(level), view.fused_md_tables(level))
+    before = _cuda.LAUNCHES["moddown"]
+    got = tks.fused_mod_down(xb, *args, cluster=cluster)
+    torch.cuda.synchronize()
+    assert got.shape == (*lead, len(keep), ctx.n)
+    assert _cuda.LAUNCHES["moddown"] == before + (1 if keep else 0)
+    assert torch.equal(got, tks.mod_down_plain(xb, *args))
+    whole = tks.fused_mod_down(x, ctx.tables(sp), ctx.tables(level),
+                               ctx.fused_md_tables(level), cluster=cluster)
+    assert torch.equal(got, whole[..., keep, :])
+
+
+def test_one_device_passes_the_identity_row_map(cuda):
+    """A whole context's key rows are the chain's own: the map is the
+    identity at every level, no splice is taken, and the kernel's words
+    are the plain version's (the key switch of the previous releases)."""
+    ctx = _cached_ctx(cuda, False, 15)
+    for level in range(1, ctx.L + 1):
+        ft = ctx.fused_ks_tables(level)
+        assert ft.splice is None
+        assert torch.equal(ft.rows.cpu(), torch.arange(level + ctx.k_sp,
+                                                       dtype=torch.int32))
+    level = ctx.L
+    ft = ctx.fused_ks_tables(level)
+    lt, kt = ctx.tables(level), ctx.tables(ctx.key_limbs(level))
+    rng = np.random.default_rng(3)
+    c = _residues(rng, ctx.moduli[:level], (2,), ctx.n, cuda)
+    kdata = _residues(rng, kt.moduli, (2, ft.D), ctx.n, cuda)
+    assert torch.equal(tks.fused_switch_key(c, kdata, lt, kt, ft),
+                       tks.switch_key_plain(c, kdata, lt, kt, ft))
+
+
+def _mesh_step(ev, c):
+    m = ev.multiply(c, c)
+    return [m, ev.rescale(m), ev.rotate(c, 3), ev.conjugate(c)]
+
+
+def _mesh_run(cuda, devices, composite=False):
+    """_mesh_step on a mesh of `devices` (data rows x 2 limb positions) at
+    logN=12, gathered, beside the single-device run on `cuda`."""
+    from fhe_gpt2_tpu_torch.core.evaluator import stack_cts
+    from fhe_gpt2_tpu_torch.parallel.mesh import MeshEvaluator, \
+        gather_ciphertext, make_mesh, shard_ciphertext
+    ctx = _cached_ctx(cuda, composite, 12)
+    kg = KeyGenerator(ctx, seed=1)
+    ev = Evaluator(ctx, relin_key=kg.relin_key(),
+                   galois_keys=kg.galois_keys([1, 2], conjugate=True))
+    enc = Encryptor(ctx, secret=kg.secret, seed=2)
+    zs = np.random.default_rng(4).uniform(-1, 1, (2, ctx.params.slots))
+    ct = stack_cts([enc.encrypt(ev.make_plain(z, ctx.params.scale, ctx.L))
+                    for z in zs])
+    mesh = make_mesh(len(devices) // 2, 2, devices)
+    mev = MeshEvaluator(mesh, ctx, relin_key=ev.relin_key,
+                        galois_keys=ev.galois_keys)
+    _cuda.reset_launches()
+    outs = mev.run(_mesh_step, shard_ciphertext(ct, mesh))
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    return ([gather_ciphertext(o, cuda) for o in outs],
+            _mesh_step(ev, ct), launches)
+
+
+@pytest.mark.parametrize("composite", [False, True])
+def test_mesh_on_one_card_equals_single_device(cuda, composite):
+    """A data=2 x limb=2 mesh of one card (four positions, four streams):
+    multiply+relin, rescale, rotate and conjugate gathered equal to the
+    single-device Evaluator, every kernel of the path launched (the
+    composite chain's pair rescale takes the mod-down, not the forward
+    NTT)."""
+    got, want, launches = _mesh_run(cuda, [cuda] * 4, composite)
+    for g, w in zip(got, want):
+        assert g.level == w.level and g.scale == w.scale
+        assert torch.equal(g.data, w.data)
+    path = [k for k in launches if not (composite and k == "ntt_fwd")]
+    assert all(launches[k] > 0 for k in path), launches
+
+
+@pytest.fixture
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+def test_context_and_launches_on_a_second_card(two_cards):
+    """CkksContext(device='cuda:1') builds every table there, and the
+    kernels launch on the operand's card while cuda:0 is current: the
+    words equal the CPU route's."""
+    dev = two_cards[1]
+    ctx = _ctx(dev, False, 12)
+    level = ctx.L
+    tabs = [ctx.ntt_all, ctx.tables(level), ctx.fused_ks_tables(level),
+            ctx.fused_md_tables(level), ctx.fused_md_tables(level).mdt,
+            ctx.drop_last_tables(level)]
+    for t in tabs:
+        for v in vars(t).values():
+            if isinstance(v, torch.Tensor):
+                assert v.device == dev, (type(t).__name__, v.device)
+    kg = KeyGenerator(ctx, seed=1)
+    ev = Evaluator(ctx, relin_key=kg.relin_key(),
+                   galois_keys=kg.galois_keys([1], conjugate=True))
+    enc = Encryptor(ctx, secret=kg.secret, seed=2)
+    z = np.random.default_rng(3).uniform(-1, 1, ctx.params.slots)
+    ct = enc.encrypt(ev.make_plain(z, ctx.params.scale, level))
+    cpu = torch.device("cpu")
+    cctx = CkksContext(ctx.params, device=cpu)
+    from fhe_gpt2_tpu_torch.core.keys import GaloisKeys, KSwitchKey
+    cev = Evaluator(cctx, relin_key=KSwitchKey(ev.relin_key.data.cpu()),
+                    galois_keys=GaloisKeys(keys={
+                        e: KSwitchKey(k.data.cpu())
+                        for e, k in ev.galois_keys.keys.items()}))
+    from fhe_gpt2_tpu_torch.core.evaluator import Ciphertext
+    cct = Ciphertext(ct.data.cpu(), ct.scale)
+    with torch.cuda.device(two_cards[0]):
+        got = [ev.rescale(ev.multiply(ct, ct)), ev.rotate(ct, 1)]
+        torch.cuda.synchronize(dev)
+    want = [cev.rescale(cev.multiply(cct, cct)), cev.rotate(cct, 1)]
+    for g, w in zip(got, want):
+        assert g.data.device == dev
+        assert torch.equal(g.data.cpu(), w.data)
+
+
+def test_mesh_over_two_cards_equals_single_device(two_cards):
+    """A limb axis over cuda:0 and cuda:1 (events across cards, peer
+    copies): the gathered words equal the single-device run's."""
+    got, want, launches = _mesh_run(two_cards[0], two_cards)
+    for g, w in zip(got, want):
+        assert torch.equal(g.data, w.data)
+    assert all(v > 0 for v in launches.values()), launches
