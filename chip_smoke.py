@@ -70,11 +70,14 @@ Phases (any failed check exits non-zero and prints no result):
              the float oracle's and the plain run's, within 0.1 of the plain
              logits;
              every refresh the one before a ReLU, leaving at the
-             post-bootstrap level; launch counts zeroed just before the
+             post-bootstrap level (each through the staged sealed
+             bootstrap: CUDA graphs captured on the first, replayed after;
+             phase 11 (c)); launch counts zeroed just before the
              request and read just after its answer, every kernel launched;
              every kernel torch.equal to its plain version at each shape of
-             one residual block and its two bootstraps on the server's
-             backend; then the transport, the upload's frames, bytes (raw
+             one residual block and its two bootstraps (run eagerly: a
+             replay calls no wrapper) on the server's backend; then the
+             transport, the upload's frames, bytes (raw
              and on the wire) and seconds (the wall time; client
              serialization, on a thread per core, and server load, each
              summed over its frames), the request's round trip and bytes,
@@ -145,7 +148,37 @@ Phases (any failed check exits non-zero and prints no result):
              two cards, step (a) on a limb axis over cuda:0 and cuda:1,
              torch.equal to the single-device run (else a line says it was
              not run);
-  11. report one JSON line of kernels, the card's name and power limit, and
+  11. sealed the sealed-program layer (nn/backend.py jit_sealed: CUDA
+             graphs), run right after phase 10: (a) phase 5's ct-mult+relin
+             sealed: warm pass and capture seconds (and the wrappers'
+             launches in them), replays torch.equal to the eager op on the
+             same and on new inputs, ms per sealed call beside the eager
+             op's (CUDA events, in one call), the replay's device ms, idle
+             share and port kernels from torch.profiler (a replay calls no
+             wrapper: the trace's kernel names show the graph ran them);
+             (b) phase 6's bootstrap through bootstrap_jitted: the first
+             call's warm passes and captures, replays torch.equal to the
+             eager bootstrap, mean abs error < ERR_BOUND_BOOT, seconds per
+             sealed bootstrap beside the eager one's (median of 3 each, in
+             turns), the replay's device ms, the graph pool's bytes, the
+             bytes the sealed stages hold and peak memory; (c) phase 7's
+             bootstraps go through bootstrap_jitted (CkksBackend.bootstrap
+             on the card): its first and steady seconds, and the mask bytes
+             each ResNet-20 segment would hold sealed, against the card's
+             free memory; (d) after phase 9, run_resnet --jit on
+             tests/test_resnet_composite_boot.py's mini ResNet (depth 8,
+             4x4, logN=10, 39 pairs, real bootstraps) for two images drawn
+             with a plain top-2 logit margin above 2 * ERR_BOUND_RESNET,
+             each logit argmax the plain run's and within ERR_BOUND_RESNET
+             of it, the second making no new program (every segment and
+             bootstrap stage a replay), then one encryption through every
+             graph held torch.equal to the same driver with plain segments
+             and eager bootstraps; run_gpt2 --jit --boot-need 30 on a
+             2-layer toy GPT-2 (32 wide, logN=10, 40 pairs), two forwards
+             within ERR_BOUND_SEALED_GPT2 of the plain run, one encryption
+             replayed and held torch.equal to the plain-segment run, and
+             what a graph shared between the layers' MLPs would cost;
+  12. report one JSON line of kernels, the card's name and power limit, and
              the last line {"ok": true, "device": {...}}.
 
 It imports the port only, never jax or fhe_gpt2_tpu. Without a CUDA device,
@@ -162,6 +195,7 @@ import subprocess
 import sys
 import time
 import traceback
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -289,20 +323,23 @@ class Timer:
 
 
 def profile_chain(torch, fn, reps: int, warm: bool = True,
-                  pad=None) -> dict:
+                  pad=None, expected=None) -> dict:
     """Device time per call of fn, device kernels per call and the top
     kernels by device time, from torch.profiler over reps calls, after one
     warm-up call (warm=False: the caller has just run fn). A trace must
     hold the spin kernel that marks the counted calls and as many of the
     port's kernels as the wrappers launched in those calls
-    (``_cuda.LAUNCHES``): a trace that lost events would understate the
-    device time. An incomplete trace is taken again, up to TRACE_ATTEMPTS
-    traces in all; then the run fails. ``pad`` (default: fn) is called at
-    the start of each trace, before the counted calls."""
+    (``_cuda.LAUNCHES``), or, where fn replays CUDA graphs (whose kernels
+    no wrapper launches), ``expected`` of each per call: a trace that lost
+    events would understate the device time. An incomplete trace is taken
+    again, up to TRACE_ATTEMPTS traces in all; then the run fails. ``pad``
+    (default: fn) is called at the start of each trace, before the counted
+    calls."""
     if warm:
         fn()
     for attempt in range(1, TRACE_ATTEMPTS + 1):
-        kern, traced, launched, lost = _trace(torch, fn, reps, pad)
+        kern, traced, launched, lost = _trace(torch, fn, reps, pad,
+                                              expected)
         if not lost:
             break
         log(f"  torch.profiler: {lost} (trace {attempt} of "
@@ -322,11 +359,11 @@ def profile_chain(torch, fn, reps: int, warm: bool = True,
                     for name, (us, count) in top]}
 
 
-def _trace(torch, fn, reps: int, pad):
+def _trace(torch, fn, reps: int, pad, expected=None):
     """One torch.profiler trace of pad (default fn), the spin marker and
     reps calls of fn: (device events after the marker, the port's kernels
-    among them, the wrappers' launches in the counted calls, what the trace
-    lost: "" when it is complete)."""
+    among them, the wrappers' launches in the counted calls or reps times
+    ``expected``, what the trace lost: "" when it is complete)."""
     from torch.profiler import ProfilerActivity, profile
     from fhe_gpt2_tpu_torch.core import _cuda
     torch.cuda.synchronize()
@@ -346,6 +383,8 @@ def _trace(torch, fn, reps: int, pad):
             fn()
         torch.cuda.synchronize()
         launched = {k: _cuda.LAUNCHES[k] - before[k] for k in KERNEL_NAMES}
+    if expected is not None:
+        launched = {k: expected[k] * reps for k in KERNEL_NAMES}
     # Device work: CUDA events but user annotations (the profiler's own
     # ProfilerStep* range), in the order they ran.
     cuda = torch.autograd.DeviceType.CUDA
@@ -752,6 +791,17 @@ def run() -> dict:
     for name in REPLACES:
         kern[name]["launches_mesh_step"] = mesh["step_launches"][name]
         kern[name]["launches_per_mesh_bootstrap"] = mesh["boot_launches"][name]
+
+    # -- 11. sealed (a, b: phase 5's unit op and phase 6's bootstrap) -------
+    result["phases"]["sealed"] = sealed = sealed_phase(
+        torch, timer, dict(ctx=ctx, ev=ev, enc=enc), boot_state)
+    for name in REPLACES:
+        kern[name]["launches_sealed_capture"] = \
+            sealed["unit"]["capture_launches"][name]
+        kern[name]["replay_kernels_unit"] = \
+            sealed["unit"]["replay_profile"]["port_launches"][name]
+        kern[name]["replay_kernels_bootstrap"] = \
+            sealed["bootstrap"]["replay_profile"]["port_launches"][name]
     del boot_state
     gc.collect()
     torch.cuda.empty_cache()
@@ -775,7 +825,10 @@ def run() -> dict:
     for name in REPLACES:
         kern[name]["launches_u64"] = u64["launches"][name]
 
-    # -- 11. report ---------------------------------------------------------------
+    # -- 11. sealed (d: the segment drivers) ---------------------------------
+    sealed["drivers"] = sealed_drivers_phase(torch)
+
+    # -- 12. report ---------------------------------------------------------------
     rows = []
     for name in REPLACES:
         k = kern[name]
@@ -791,6 +844,10 @@ def run() -> dict:
                      "launches_mesh_step": k["launches_mesh_step"],
                      "launches_per_mesh_bootstrap":
                          k["launches_per_mesh_bootstrap"],
+                     "launches_sealed_capture": k["launches_sealed_capture"],
+                     "replay_kernels_unit": k["replay_kernels_unit"],
+                     "replay_kernels_bootstrap":
+                         k["replay_kernels_bootstrap"],
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": None,
@@ -939,8 +996,8 @@ class RefreshLog:
 
 def bootstrap_phase(torch, timer, same) -> dict:
     """Phase 6: the bootstrap path at bench.py's composite bootstrap shape.
-    Returns (its results, the context, keys, Bootstrapper and ciphertext
-    that phase 10 reuses)."""
+    Returns (its results, the context, keys, Bootstrapper, ciphertext and
+    launches per bootstrap that phases 10 and 11 reuse)."""
     from fhe_gpt2_tpu_torch.boot.bootstrap import Bootstrapper, \
         evalmod_cache_path, make_evalmod, mod_raise
     from fhe_gpt2_tpu_torch.core import _cuda
@@ -1108,7 +1165,8 @@ def bootstrap_phase(torch, timer, same) -> dict:
             "profile": prof, "peak_bytes": peak, "equal_s": equal_s,
             "path_shapes": {k: len(v) for k, v in shapes.items()},
             "path_plain_s": plain_s}, dict(ctx=ctx, ev=ev, enc=enc, dec=dec,
-                                          boot=boot, ct=ct, z=z)
+                                          boot=boot, ct=ct, z=z,
+                                          launches=launches)
 
 
 def key_bytes(ev) -> int:
@@ -1519,8 +1577,8 @@ def resnet_phase(torch, timer, same) -> dict:
     # frames alone. On its first call model_fn builds the Bootstrapper from
     # the uploaded keys; it counts and times every refresh the forward asks
     # for (the one before each ReLU, or an auto-refresh at the level floor).
-    served = {"boots": [], "boot_s": [], "calls": 0}
-    where = {"planned": False, "segment": None}
+    served = {"boots": [], "boot_s": [], "calls": 0, "mask_bytes": {}}
+    where = {"planned": False, "segment": None, "boot": False}
 
     def model_fn(B, ct):
         served["calls"] += 1
@@ -1536,7 +1594,11 @@ def resnet_phase(torch, timer, same) -> dict:
             def counting_boot(v, **kw):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                out = inner_boot(v, **kw)
+                where["boot"] = True
+                try:
+                    out = inner_boot(v, **kw)
+                finally:
+                    where["boot"] = False
                 torch.cuda.synchronize()
                 served["boot_s"].append(time.perf_counter() - t0)
                 served["boots"].append((where["planned"], where["segment"],
@@ -1551,6 +1613,21 @@ def resnet_phase(torch, timer, same) -> dict:
                     where["planned"] = False
 
             B.bootstrap, B.maybe_bootstrap = counting_boot, planned_boot
+
+            # The bytes of every mask the segments encode (the bootstraps'
+            # own aside): what a sealed segment would hold resident.
+            def sized(encode):
+                def f(*args):
+                    pt = encode(*args)
+                    if not where["boot"]:
+                        mb = served["mask_bytes"]
+                        mb[where["segment"]] = (mb.get(where["segment"], 0)
+                                                + pt.data.numel()
+                                                * pt.data.element_size())
+                    return pt
+                return f
+            B.ev.make_plain = sized(B.ev.make_plain)
+            B.ev.make_plain_ext = sized(B.ev.make_plain_ext)
         segs = R.forward_segments(B, rp)
         xs = [ct]
         torch.cuda.synchronize()
@@ -1665,12 +1742,34 @@ def resnet_phase(torch, timer, same) -> dict:
     for name in REPLACES:
         check(launches[name] > 0, f"kernel {name} not launched by the ResNet")
 
+    # The bootstraps took bootstrap_jitted: the first made each stage's
+    # graph (warm pass and capture), the others replayed them.
+    stage_progs = [p for c in sB.boot._staged_jit
+                   for p in c.programs.values()]
+    log(f"resnet: sealed bootstraps: first {boot_s[0]:.2f} s (warm passes "
+        f"{sum(p.warm_s for p in stage_progs):.2f} s, captures "
+        f"{sum(p.capture_s for p in stage_progs):.2f} s of "
+        f"{len(stage_progs)} stage graphs), steady "
+        f"{np.median(boot_s[1:]):.3f} s (median of {len(boot_s) - 1} "
+        f"replayed)")
+    # What sealing each segment would hold resident: its masks' bytes.
+    free, total = torch.cuda.mem_get_info()
+    mask_bytes = [served["mask_bytes"].get(i, 0) for i in range(len(seg_s))]
+    log(f"resnet: mask bytes per segment (stem, blocks, tail), GiB: "
+        + ", ".join(f"{b / 2 ** 30:.2f}" for b in mask_bytes)
+        + f"; largest {max(mask_bytes) / 2 ** 30:.2f} GiB, all "
+        f"{sum(mask_bytes) / 2 ** 30:.2f} GiB, against {free / 2 ** 30:.1f}"
+        f" GiB free of {total / 2 ** 30:.1f} GiB on the card")
+
     # Every kernel against its plain version at each shape that one
     # residual block (conv, refresh, ReLU, conv, add, refresh, ReLU) and its
-    # two bootstraps give it on the server's backend.
+    # two bootstraps give it on the server's backend. A graph replay calls
+    # no wrapper, so here, and for the block's profile, the two bootstraps
+    # run eagerly.
     segs, stem_out = served["segs"], served["stem_out"]
     t0 = time.perf_counter()
-    shapes = hold_path_to_plain(lambda: segs[1](stem_out), same)
+    with eager_bootstraps(sB.boot):
+        shapes = hold_path_to_plain(lambda: segs[1](stem_out), same)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     log(f"resnet: one block and its bootstraps, every kernel torch.equal to "
@@ -1690,8 +1789,9 @@ def resnet_phase(torch, timer, same) -> dict:
 
     # One residual block: wall ms by CUDA events, device ms, kernels and the
     # idle share from torch.profiler.
-    block_ms = timer(lambda: segs[1](stem_out), iters=1, warmup=0)
-    prof = profile_chain(torch, lambda: segs[1](stem_out), reps=1)
+    with eager_bootstraps(sB.boot):
+        block_ms = timer(lambda: segs[1](stem_out), iters=1, warmup=0)
+        prof = profile_chain(torch, lambda: segs[1](stem_out), reps=1)
     prof["ms"] = block_ms
     prof["idle_share"] = 1.0 - prof["device_ms"] / block_ms
     peak = torch.cuda.max_memory_allocated()
@@ -1718,6 +1818,8 @@ def resnet_phase(torch, timer, same) -> dict:
             "bootstraps": len(image_boots), "boot_s": boot_s,
             "boot_first_s": boot_s[0],
             "boot_steady_s": float(np.median(boot_s[1:])),
+            "boot_capture_s": sum(p.capture_s for p in stage_progs),
+            "mask_bytes": mask_bytes,
             "boots": image_boots, "logits": got.tolist(),
             "plain": net["plain"].tolist(), "want": net["want"].tolist(),
             "max_abs_err": err, "launches": launches,
@@ -2244,6 +2346,450 @@ def u64_phase(torch, timer) -> dict:
             "boot_mean_abs_err": float(berr.mean()),
             "boot_max_abs_err": float(berr.max()), "boot_level": out.level,
             "phase_s": phase_s}
+
+
+
+# -- 11. sealed ---------------------------------------------------------------
+
+@contextmanager
+def eager_bootstraps(boot):
+    """Run the body with `boot` bootstrapping eagerly (its bootstrap_jitted
+    replaced by bootstrap): a graph replay calls no wrapper, so what holds
+    each kernel to its plain version, or counts its launches beside the
+    profiler, takes the bootstraps eagerly."""
+    boot.bootstrap_jitted = boot.bootstrap
+    try:
+        yield
+    finally:
+        del boot.bootstrap_jitted
+
+
+def sealed_phase(torch, timer, unit, boot_state) -> dict:
+    """Phase 11 (a, b): the unit op (phase 5's ct-mult+relin at logN=15,
+    22 limbs) and phase 6's staged bootstrap as sealed programs (CUDA
+    graphs), each beside its eager run in this call."""
+    from fhe_gpt2_tpu_torch.core import _cuda
+    from fhe_gpt2_tpu_torch.core.evaluator import Ciphertext
+    from fhe_gpt2_tpu_torch.nn.backend import CkksBackend, graph_pool_bytes, \
+        jit_sealed
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    ctx, ev, enc = unit["ctx"], unit["ev"], unit["enc"]
+    B = CkksBackend(ctx=ctx, ev=ev, enc=enc, default_level=ctx.L)
+    drng = np.random.default_rng(21)
+
+    def fresh():
+        z = drng.uniform(-1, 1, ctx.params.slots)
+        return enc.encrypt(ev.make_plain(z, ctx.params.scale, NUM_LEVELS))
+
+    def op(c):
+        return ev.multiply(c, c)
+
+    # (a) the unit op.
+    ct = fresh()
+    want = op(ct)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    call = jit_sealed(B, op, ct)
+    torch.cuda.synchronize()
+    seal_s = time.perf_counter() - t0
+    capture_launches = dict(_cuda.LAUNCHES)
+    [prog] = call.programs.values()
+    check(prog.graph is not None, "unit op: no graph captured")
+    same_ct = Ciphertext(ct.data, ct.scale, ct.level)
+    got = call(same_ct)
+    check(torch.equal(got.data, want.data) and got.scale == want.scale,
+          "unit op: replay != eager")
+    ct2 = fresh()
+    got2 = call(ct2)
+    check(torch.equal(got2.data, op(ct2).data),
+          "unit op: replay on new inputs != eager")
+    check(torch.equal(got.data, want.data), "unit op: a replay overwrote "
+          "the output of the one before")
+    torch.cuda.synchronize()
+    before = dict(_cuda.LAUNCHES)
+    sealed_ms = timer(lambda: call(same_ct), iters=ITERS, warmup=3)
+    check(_cuda.LAUNCHES == before, "unit op: a replay called a wrapper")
+    eager_ms = timer(lambda: op(ct), iters=ITERS, warmup=3)
+    sealed_ms2 = timer(lambda: call(same_ct), iters=ITERS, warmup=0)
+    # The replay's trace holds the kernels the warm pass launched (half
+    # of the warm pass's and the capture's).
+    rprof = profile_chain(torch, lambda: call(same_ct), reps=10, expected={
+        k: v // 2 for k, v in capture_launches.items()})
+    log(f"sealed unit op (ct-mult+relin, logN=15, {NUM_LEVELS} limbs): "
+        f"warm pass {prog.warm_s:.3f} s + capture {prog.capture_s:.3f} s "
+        f"({seal_s:.3f} s in all; wrapper launches in them "
+        f"{capture_launches}); replay torch.equal to eager, also on new "
+        f"inputs; {sealed_ms:.3f} / {sealed_ms2:.3f} ms per sealed call "
+        f"(input copy, replay, output copy) against {eager_ms:.3f} ms "
+        f"eager (CUDA events, {ITERS} calls, same call); replay device "
+        f"{rprof['device_ms']:.3f} ms (idle "
+        f"{100 * (1 - rprof['device_ms'] / sealed_ms):.1f}%), "
+        f"{rprof['launches']:.0f} kernels per call, port kernels "
+        f"{rprof['port_launches']}")
+    for name, kms, cnt in rprof["top"]:
+        log(f"  {kms:.4f} ms  x{cnt:.0f}  {name}")
+    out = {"unit": {"warm_s": prog.warm_s, "capture_s": prog.capture_s,
+                    "seal_s": seal_s, "capture_launches": capture_launches,
+                    "sealed_ms": [sealed_ms, sealed_ms2],
+                    "eager_ms": eager_ms, "replay_profile": rprof}}
+
+    # (b) the staged bootstrap at phase 6's shape.
+    boot, bct, dec, z = (boot_state[k] for k in ("boot", "ct", "dec", "z"))
+    bB = boot.B
+    want = boot.bootstrap(bct)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    first = boot.bootstrap_jitted(bct)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    stages = [p for c in boot._staged_jit for p in c.programs.values()]
+    check(all(p.graph is not None for p in stages),
+          "bootstrap: a stage without a graph")
+    capture_s = sum(p.capture_s for p in stages)
+    warm_s = sum(p.warm_s for p in stages)
+    pool = graph_pool_bytes(bB)
+    held = torch.cuda.memory_allocated() - mem0
+    check(torch.equal(first.data, want.data), "bootstrap: warm pass != eager")
+    got = boot.bootstrap_jitted(bct)
+    check(torch.equal(got.data, want.data) and got.scale == want.scale
+          and got.level == want.level, "bootstrap: replay != eager")
+    err = np.abs(np.real(dec.decrypt(got, num_slots=BOOT_SLOTS)) - z)
+    check(err.mean() < ERR_BOUND_BOOT, f"sealed bootstrap mean error "
+          f"{err.mean()}")
+    eager_s, sealed_s = [], []
+    for _ in range(3):
+        eager_s.append(timer(lambda: boot.bootstrap(bct), iters=1,
+                             warmup=0) / 1e3)
+        sealed_s.append(timer(lambda: boot.bootstrap_jitted(bct), iters=1,
+                              warmup=0) / 1e3)
+    # A replay runs the eager bootstrap's kernels (phase 6 counted them).
+    bprof = profile_chain(torch, lambda: boot.bootstrap_jitted(bct), reps=1,
+                          expected=boot_state["launches"])
+    sealed_med = float(np.median(sealed_s))
+    peak = torch.cuda.max_memory_allocated()
+    free, total = torch.cuda.mem_get_info()
+    log(f"sealed bootstrap (logN=15, {boot.ctx.L} limbs, {BOOT_SLOTS} "
+        f"slots, {len(stages)} stage graphs): first call {first_s:.2f} s "
+        f"(warm passes {warm_s:.2f} s, captures {capture_s:.2f} s); replay "
+        f"torch.equal to eager, mean abs err {err.mean():.3e} (bound "
+        f"{ERR_BOUND_BOOT}); {sealed_med:.4f} s per sealed bootstrap "
+        f"(median of {[round(v, 4) for v in sealed_s]}) against "
+        f"{float(np.median(eager_s)):.4f} s eager (median of "
+        f"{[round(v, 4) for v in eager_s]}; CUDA events, in turns); replay "
+        f"device {bprof['device_ms']:.1f} ms (idle "
+        f"{100 * (1 - bprof['device_ms'] / 1e3 / sealed_med):.1f}%), "
+        f"{bprof['launches']:.0f} kernels; graph pool "
+        f"{pool / 2 ** 30:.3f} GiB, tensors the sealed stages hold "
+        f"{held / 2 ** 30:.3f} GiB, peak {peak / 2 ** 30:.2f} GiB, free "
+        f"{free / 2 ** 30:.1f} of {total / 2 ** 30:.1f} GiB")
+    for name, kms, cnt in bprof["top"]:
+        log(f"  {kms:.3f} ms  x{cnt:.0f}  {name}")
+    out["bootstrap"] = {
+        "stages": len(stages), "first_s": first_s, "warm_s": warm_s,
+        "capture_s": capture_s, "sealed_s": sealed_s, "eager_s": eager_s,
+        "mean_abs_err": float(err.mean()), "graph_pool_bytes": pool,
+        "held_bytes": held, "peak_bytes": peak, "replay_profile": bprof}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+ERR_BOUND_SEALED_GPT2 = 1e-8  # phase 11: 2 toy layers at Δ=2^50, 4 Newton
+                              # steps (5.25e-11 and 7.91e-11 on the H100)
+SEALED_RESNET_ARGS = [
+    # tests/test_resnet_composite_boot.py's schedule: the composite chain
+    # of 39 pairs at logN=10, h=16, 4 specials, K=25 / degree 59 EvalMod,
+    # CtS/StC in 3 factors, inputs at 18 pairs, auto-refresh floor 2.
+    "--composite", "--logn", "10", "--levels", "39", "--log-scale", "50",
+    "--nsp", "4", "--hamming", "16", "--real-boot", "--digit-keys",
+    "--boot-factors", "3", "--start-level", "18", "--headroom", "2",
+    "--sign-log2-err", "-10", "--jit"]
+SEALED_GPT2_ARGS = [
+    # The CPU tests' toy GPT-2 (32 wide, 4 heads, seq 16, 4 Newton steps)
+    # with 2 layers; every segment's input refreshed with boot_need pairs
+    # or fewer left, which a segment (attention: 26 pairs) fits in.
+    "--layers", "2", "--composite", "--logn", "10", "--levels", "40",
+    "--nsp", "4", "--ln-iters", "4", "--weights", "synthetic",
+    "--newton-inits", "rowmax", "--jit", "--boot-need", "30"]
+
+
+def segment_programs(a) -> list:
+    """The sealed programs of run_resnet --jit's session so far."""
+    ses = getattr(a, "_session", None)
+    if ses is None:
+        return []
+    return [p for _, calls, _ in ses.B._segments.values()
+            for c in calls.values() for p in c.programs.values()]
+
+
+@contextmanager
+def plain_segments():
+    """Run the body with the segment drivers' segments as plain calls (no
+    sealed program): the eager run of the same driver, with the same
+    refreshes between segments."""
+    from fhe_gpt2_tpu_torch.nn import backend as NB
+    saved = NB.segment_runner
+    NB.segment_runner = lambda B, kind, model: (
+        lambda name, fn, vs, part=None: fn(vs))
+    try:
+        yield
+    finally:
+        NB.segment_runner = saved
+
+
+def equal_cts(got, want) -> bool:
+    """Two lists of ciphertexts: equal scales, levels and words."""
+    import torch
+    return len(got) == len(want) and all(
+        g.scale == w.scale and g.level == w.level
+        and torch.equal(g.data, w.data) for g, w in zip(got, want))
+
+
+def event_ms(torch, fn, reps: int = 20) -> float:
+    """Mean ms of fn over reps calls, by CUDA events."""
+    fn()
+    t0, t1 = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def rebound_graph_cost(torch, B, calls) -> dict:
+    """What sharing one graph between GPT-2 layer 0's MLP and layer 1's
+    (rebind_sealed's JAX counterpart) would cost and save, on layer 1's
+    program: the mask bytes a switch would copy into the graph's mask
+    tensors and the ms that copy takes (one copy per tensor, CUDA events),
+    beside the graph's replay ms, its capture seconds and the pool bytes a
+    graph adds (one more capture of the program, its replay held
+    torch.equal to the program's own graph on the same inputs, then
+    dropped)."""
+    from fhe_gpt2_tpu_torch.nn.backend import graph_pool_bytes
+    [c] = [c for (name, part, _), c in calls.items()
+           if (name, part) == ("mlp", 1)]
+    [prog] = c.programs.values()
+    gr = prog.graph
+    masks = [p.data for p in list(prog.seal.plains.values())
+             + list(prog.seal.encodes.values())]
+    mask_bytes = sum(t.numel() * t.element_size() for t in masks)
+    into = [t.clone() for t in masks]
+
+    def load():
+        for dst, src in zip(into, masks):
+            dst.copy_(src)
+
+    load_ms = event_ms(torch, load)
+    del into
+    replay_ms = event_ms(torch, gr.graph.replay)
+    want = [t.clone() for t in gr.static_out]
+    pool0 = graph_pool_bytes(B)
+    t0 = time.perf_counter()
+    again = c._capture(prog, [t.clone() for t in gr.static_in])
+    torch.cuda.synchronize()
+    again_capture_s = time.perf_counter() - t0
+    again_pool = graph_pool_bytes(B) - pool0
+    again.graph.replay()
+    check(all(torch.equal(a, b) for a, b in zip(again.static_out, want)),
+          "mlp1: a second capture's replay != the first's")
+    del again
+    gc.collect()
+    return {"segment": "mlp1", "mask_bytes": mask_bytes, "load_ms": load_ms,
+            "replay_ms": replay_ms, "capture_s": prog.capture_s,
+            "again_capture_s": again_capture_s, "pool_bytes": again_pool}
+
+
+def sealed_drivers_phase(torch) -> dict:
+    """Phase 11 (d): the segment drivers on the card. run_resnet --jit on
+    tests/test_resnet_composite_boot.py's mini ResNet (depth 8, 4x4) with
+    real bootstraps, two images (the second replays every graph), then one
+    image encrypted once and run twice, all graphs replayed and the same
+    driver with plain segments and eager bootstraps, torch.equal; run_gpt2
+    --jit --boot-need on a 2-layer toy GPT-2, two forwards, then one
+    encryption run replayed and eagerly, torch.equal, and what sharing a
+    graph between its layers' MLPs would cost (rebound_graph_cost)."""
+    from fhe_gpt2_tpu_torch import run_gpt2, run_resnet
+    from fhe_gpt2_tpu_torch.approx.minimax import dp_schedule
+    from fhe_gpt2_tpu_torch.cnn import resnet as R
+    from fhe_gpt2_tpu_torch.core import _cuda
+    from fhe_gpt2_tpu_torch.nn import kernels as K
+    from fhe_gpt2_tpu_torch.nn import model as M
+    from fhe_gpt2_tpu_torch.nn.backend import PlainBackend, graph_pool_bytes
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(0)
+    weights = R.synthetic_weights(rng, 8)
+    sign = K.SignPlans.from_composite(dp_schedule(2.0 ** -10, 2.0 ** -8))
+    rp = R.build_resnet_plans(weights, 8, 512, h=4, relu_bound=10.0,
+                              sign=sign)
+    # The first two images drawn whose plain top-2 logit margin exceeds
+    # twice ERR_BOUND_RESNET, so that each argmax is held to the plain
+    # run's: at a smaller margin the logits' error (~1e-2 here) may swap
+    # the top two, which is noise, not a fault.
+    imgs, plains = [], []
+    for _ in range(32):
+        img = rng.uniform(-1, 1, (3, 4, 4))
+        plain = R.logits_from_slots(rp, R.forward(
+            PlainBackend(rp.slots), R.pack_input(rp, img), rp,
+            boot_between=False)[0])
+        top2 = np.sort(plain)[-2:]
+        if top2[1] - top2[0] > 2 * ERR_BOUND_RESNET:
+            imgs.append(img)
+            plains.append(plain)
+            if len(imgs) == 2:
+                break
+    check(len(imgs) == 2, "resnet --jit: no two images with a margin")
+    a = run_resnet.parse_args(SEALED_RESNET_ARGS)
+    rows = []
+    for i, (img, plain) in enumerate(zip(imgs, plains)):
+        n_prog = len(segment_programs(a))
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        [got] = run_resnet._run_encrypted(a, rp, [img])
+        torch.cuda.synchronize()
+        image_s = time.perf_counter() - t0
+        ses = a._session
+        progs = segment_programs(a)
+        boots = [p for c in ses.B.boot._staged_jit
+                 for p in c.programs.values()]
+        err = float(np.abs(got - plain).max())
+        top2 = np.sort(plain)[-2:]
+        rows.append({"image_s": image_s, "boot_s": list(ses.boot_times),
+                     "warm_s": sum(p.warm_s for p in progs + boots),
+                     "programs": len(progs), "new_programs":
+                     len(progs) - n_prog, "boot_programs": len(boots),
+                     "capture_s": sum(p.capture_s for p in progs + boots),
+                     "launches": dict(_cuda.LAUNCHES), "err": err,
+                     "margin": float(top2[1] - top2[0])})
+        ses.boot_times.clear()
+        check(np.isfinite(got).all() and err < ERR_BOUND_RESNET,
+              f"resnet --jit image {i}: |got - plain| {err}")
+        check(np.argmax(got) == np.argmax(plain),
+              f"resnet --jit image {i}: argmax {np.argmax(got)} != plain "
+              f"{np.argmax(plain)}")
+        log(f"run_resnet --jit (mini ResNet-8, 4x4, logN=10, 39 pairs, real "
+            f"bootstraps) image {i}: {image_s:.2f} s, {len(rows[-1]['boot_s'])}"
+            f" bootstraps ({', '.join(f'{v:.3f}' for v in rows[-1]['boot_s'])}"
+            f" s), {len(progs)} segment programs ({rows[-1]['new_programs']} "
+            f"new), "
+            f"{len(boots)} bootstrap stage graphs, warm passes "
+            f"{rows[-1]['warm_s']:.2f} s and captures "
+            f"{rows[-1]['capture_s']:.2f} s in all so far; |logits - plain| "
+            f"{err:.3e}, argmax {np.argmax(got)} (plain {np.argmax(plain)}, "
+            f"top-2 margin {rows[-1]['margin']:.3e}); wrapper launches "
+            f"{rows[-1]['launches']}")
+    check(rows[1]["new_programs"] == 0, "resnet --jit: the second image made "
+          "new programs")
+    # One encryption, every graph replayed, against the same driver run
+    # eagerly (plain segments, eager bootstraps): the same words.
+    B = a._session.B
+    xs = [B.from_slots(v) for v in R.pack_input(rp, imgs[0])]
+    n_prog = len(segment_programs(a))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = R.forward(B, list(xs), rp, jit=True)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    check(len(segment_programs(a)) == n_prog, "resnet --jit: the replayed "
+          "forward made new programs")
+    with plain_segments(), eager_bootstraps(B.boot):
+        t0 = time.perf_counter()
+        eag = R.forward(B, list(xs), rp, jit=True)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+    check(equal_cts(rep, eag), "resnet --jit: the replayed forward != the "
+          "same driver run eagerly")
+    resnet_equal = {"replay_s": replay_s, "eager_s": eager_s}
+    log(f"run_resnet --jit: one encryption through every graph ({replay_s:.2f}"
+        f" s) torch.equal to the same driver with plain segments and eager "
+        f"bootstraps ({eager_s:.2f} s)")
+    pool = graph_pool_bytes(B)
+    del a._session, B, xs, rep, eag
+    gc.collect()
+
+    # GPT-2: two forwards through one session, then one encryption replayed
+    # and run eagerly.
+    g = run_gpt2.parse_args(SEALED_GPT2_ARGS)
+    m = run_gpt2.load_model(g)
+    ses = run_gpt2.build_session(g, m)
+    plain = run_gpt2.plain_forward(m)
+    grows = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hidden = run_gpt2.encrypted_forward(ses, m, jit=True,
+                                            boot_need=g.boot_need)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        err = float(np.abs(hidden - plain).max())
+        grows.append({"forward_s": fwd_s, "err": err})
+        check(np.isfinite(hidden).all() and err < ERR_BOUND_SEALED_GPT2,
+              f"gpt2 --jit forward {i}: |hidden - plain| {err}")
+    B = ses.B
+    xs = [B.from_slots(v) for v in m.sh.act.pack(m.emb)]
+    state = B.enc.rng.bit_generator.state
+
+    def forward():
+        # The refreshes re-encrypt: each run draws the same randomness.
+        B.enc.rng.bit_generator.state = state
+        return M.forward(B, list(xs), m.plans, jit=True,
+                         boot_need=g.boot_need)
+
+    calls = list(B._segments.values())[0][1]
+    n_prog = sum(len(c.programs) for c in calls.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = forward()
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    check(sum(len(c.programs) for c in calls.values()) == n_prog,
+          "gpt2 --jit: the replayed forward made new programs")
+    with plain_segments():
+        t0 = time.perf_counter()
+        eag = forward()
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+    check(equal_cts(rep, eag), "gpt2 --jit: the replayed forward != the "
+          "same driver run eagerly")
+    gpt2_equal = {"replay_s": replay_s, "eager_s": eager_s}
+    cost = rebound_graph_cost(torch, B, calls)
+    log(f"run_gpt2 --jit --boot-need {g.boot_need} (2 layers, 32 wide, "
+        f"logN=10, {g.levels} pairs): forwards "
+        + ", ".join(f"{r['forward_s']:.2f}" for r in grows) + " s, |hidden - "
+        f"plain| " + ", ".join(f"{r['err']:.2e}" for r in grows)
+        + f" (bound {ERR_BOUND_SEALED_GPT2}); one encryption through every "
+        f"graph ({replay_s:.3f} s) torch.equal to the same driver with plain "
+        f"segments ({eager_s:.3f} s); {len(calls)} segment graphs")
+    log(f"layer 1's MLP graph: a shared graph would copy its "
+        f"{cost['mask_bytes'] / 2 ** 20:.2f} MiB of masks on each switch, "
+        f"{cost['load_ms']:.4f} ms, beside a replay of "
+        f"{cost['replay_ms']:.4f} ms, and keep the base's masks twice; a "
+        f"graph of its own took {cost['capture_s']:.3f} s to capture "
+        f"({cost['again_capture_s']:.3f} s again, adding "
+        f"{cost['pool_bytes'] / 2 ** 20:.1f} MiB of pool; its replay "
+        f"torch.equal to the first's)")
+    gpool = graph_pool_bytes(ses.B)
+    del ses, B, xs, rep, eag
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    phase_s = time.perf_counter() - t_phase
+    log(f"sealed drivers: graph pools {pool / 2 ** 20:.1f} MiB (ResNet) and "
+        f"{gpool / 2 ** 20:.1f} MiB (GPT-2); peak {peak / 2 ** 30:.2f} GiB; "
+        f"phase {phase_s:.1f} s")
+    return {"resnet": rows, "resnet_equal": resnet_equal,
+            "resnet_pool_bytes": pool, "gpt2": grows,
+            "gpt2_equal": gpt2_equal, "rebound_graph": cost,
+            "gpt2_pool_bytes": gpool, "peak_bytes": peak, "phase_s": phase_s}
 
 
 def main() -> int:

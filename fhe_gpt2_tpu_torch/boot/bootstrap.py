@@ -16,8 +16,10 @@ hold x = (Δ/Q0)·m + I; EvalMod computes sin(2πx)/(2π) ≈ (Δ/Q0)·m with th
 amplitude Q0/Δ folded into its last polynomial, and the output is
 relabelled Δ.
 
-The pipeline runs eagerly (``Bootstrapper.bootstrap``); the JAX package's
-per-stage jit (``bootstrap_jitted``) has no counterpart. EvalMod's
+``Bootstrapper.bootstrap`` runs the pipeline eagerly; ``bootstrap_jitted``
+runs each stage as a sealed program (``nn/backend.py`` ``jit_sealed``: a
+CUDA graph on the card, captured on first use), as the JAX package jits
+each stage. EvalMod's
 coefficients come from ``approx/_cache/``; ``approx/remez.py`` (and so
 mpmath) is imported only to make a set the cache lacks.
 """
@@ -89,8 +91,9 @@ def mod_raise(ctx, ct: Ciphertext) -> Ciphertext:
     Q0 = ctx.q0_int
     L = ctx.L
     t_full = ctx.tables(L)
-    q0_img = word_tensor(ctx.const_residues(Q0, ctx.data_limbs(L)),
-                         ctx.device, word=ctx.word)
+    q0_img = ctx._cached(("q0_img", L), lambda: word_tensor(
+        ctx.const_residues(Q0, ctx.data_limbs(L)), ctx.device,
+        word=ctx.word))
     data = ctx.with_trailing(ct.data.contiguous(), ctx.base_limbs,
                              ctx.base_limbs)
     if ctx.base_limbs == 1:
@@ -225,6 +228,10 @@ class Bootstrapper:
     construction precomputes the FFT factor plans and takes the EvalMod
     polynomials (its amplitude folded in)."""
 
+    # True on a mesh position's copy (``on``): CkksBackend.bootstrap takes
+    # the eager pipeline there, never the sealed one.
+    eager_only = False
+
     def __init__(self, backend, num_slots: int | None = None,
                  target_level: int | None = None, cts_factors: int = 2,
                  stc_factors: int = 2, evalmod: EvalModPoly | None = None):
@@ -261,6 +268,10 @@ class Bootstrapper:
         polynomials and their host masks are shared, not rebuilt."""
         out = copy.copy(self)
         out.B, out.ctx = backend, backend.ctx
+        out.__dict__.pop("_staged_jit", None)    # sealed on self.B
+        # A position runs on its own thread and stream while the mesh's
+        # exchanges wait on events across streams: it bootstraps eagerly.
+        out.eager_only = True
         return out
 
     def _plan(self, diag: dict, name: str):
@@ -349,6 +360,36 @@ class Bootstrapper:
         # The values are m at the context scale (amplitude folded into the
         # arcsin stage); relabel to the incoming scale exactly.
         return replace(out, scale=delta)
+
+    def bootstrap_jitted(self, ct: Ciphertext) -> Ciphertext:
+        """Staged sealed bootstrap: each stage of ``stages()`` is its own
+        ``jit_sealed`` program (on the card a CUDA graph), made on first
+        use and kept on this Bootstrapper, keyed inside by input signature.
+        The entry normalisation runs eagerly, outside the programs, so
+        every stage sees one signature per run. Threads take turns over the
+        whole pipeline (the backend's ``_seal_lock``). A mesh position's
+        bootstrapper (``on``) runs eagerly and refuses this."""
+        assert ct.k == 2
+        if self.eager_only:
+            raise ValueError("bootstrap_jitted: a mesh position's "
+                             "bootstrapper (Bootstrapper.on) runs eagerly; "
+                             "call bootstrap")
+        delta = ct.scale
+        xs = [self._normalize_entry(ct)]
+        with self.B._seal_lock:
+            jfs = getattr(self, "_staged_jit", None)
+            if jfs is None:
+                from ..nn.backend import jit_sealed
+                jfs = []
+                for _, fn in self.stages():
+                    jf = jit_sealed(self.B, fn, xs)
+                    jfs.append(jf)
+                    xs = jf(xs)
+                self._staged_jit = jfs
+            else:
+                for jf in jfs:
+                    xs = jf(xs)
+        return replace(xs[0], scale=delta)
 
     def _mul_i(self, ct):
         """Multiply the slots by i (a plaintext constant vector)."""

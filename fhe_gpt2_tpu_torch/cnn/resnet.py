@@ -12,8 +12,9 @@ level budget via backend.maybe_bootstrap.
 
 The port's copy of ``fhe_gpt2_tpu/cnn/resnet.py``: the same plans, packing,
 bootstrap placement and float oracle over the port's backends. The forward
-runs eagerly; the JAX package's jitted segment driver (``_forward_jit``) is
-program caching and has no counterpart here. ``synthetic_weights`` makes
+runs eagerly, or, with jit=True, through the segment driver
+(``_forward_jit``), whose segments are sealed programs (CUDA graphs on the
+card, ``nn/backend.py`` ``jit_sealed``). ``synthetic_weights`` makes
 reference-format weights from a numpy generator, for runs without the
 pretrained files.
 """
@@ -247,17 +248,72 @@ def forward_segments(B, rp: ResNetPlans, boot_between: bool = True) -> list:
 def forward(B, xs, rp: ResNetPlans, boot_between: bool = True, jit=False):
     """Encrypted ResNet forward. xs: planar-packed ct list (usually 1 ct).
 
-    The segments run eagerly, each op issued as it is called. jit=True
-    raises ValueError: the JAX package's jitted segment driver is program
-    caching for the TPU, and the port has no counterpart of it."""
+    jit=True runs the segment driver (``_forward_jit``): fine-grained
+    segments split at the bootstrap boundaries, each a sealed program (a
+    CUDA graph on the card), with the bootstraps between them outside the
+    programs through the Bootstrapper's staged sealed pipeline. Blocks of
+    the same geometry rebind to the first's call (``rebind_sealed``), each
+    with a program of its own."""
     if jit:
-        raise ValueError(
-            "forward(jit=True): the port has no jitted segment driver (the "
-            "JAX package's _forward_jit is XLA program caching); call "
-            "forward(..., jit=False), which runs the same segments eagerly")
+        return _forward_jit(B, xs, rp, boot_between)
     for s in forward_segments(B, rp, boot_between):
         xs = s(xs)
     return xs
+
+
+def _forward_jit(B, xs, rp: ResNetPlans, boot_between: bool = True):
+    from ..nn.backend import segment_runner
+
+    need = rp.relu_need + 1
+    run = segment_runner(B, "resnet", rp)
+
+    def boot(vs, n=None):
+        if not boot_between:
+            return vs
+        return [B.maybe_bootstrap(v, n if n is not None else need)
+                for v in vs]
+
+    def relu_fn(vs):
+        return _relu(B, vs, rp)
+
+    def stem_fn(vs):
+        plan, bias, _ = rp.stem
+        vs = apply_lt(B, plan, vs)
+        return [B.add_plain(x, bias[i]) for i, x in enumerate(vs)]
+
+    xs = run("stem", stem_fn, xs)
+    xs = run("relu", relu_fn, boot(xs))
+    for bi, blk in enumerate(rp.blocks):
+        geo = (blk["lin"].c, blk["lout"].c, blk["short"] is not None)
+
+        def conv1_fn(vs, blk=blk):
+            h = apply_lt(B, blk["plan1"], vs)
+            return [B.add_plain(v, blk["bias1"][i]) for i, v in enumerate(h)]
+
+        h = run(("conv1", geo), conv1_fn, xs, part=bi)
+        h = run("relu", relu_fn, boot(h))
+        nh = len(h)
+
+        def conv2_fn(both, blk=blk, nh=nh):
+            h, res_in = both[:nh], both[nh:]
+            v = apply_lt(B, blk["plan2"], h)
+            v = [B.add_plain(t, blk["bias2"][i]) for i, t in enumerate(v)]
+            res = (res_in if blk["short"] is None
+                   else apply_lt(B, blk["short"], res_in))
+            if blk.get("short_bias") is not None:
+                res = [B.add_plain(t, blk["short_bias"][i]) if t is not None
+                       else None for i, t in enumerate(res)]
+            return [a if b is None else B.add(a, b) for a, b in zip(v, res)]
+
+        h = run(("conv2", geo), conv2_fn, h + xs, part=bi)
+        xs = run("relu", relu_fn, boot(h))
+
+    def tail_fn(vs):
+        vs = apply_lt(B, rp.pool, vs)
+        vs = apply_lt(B, rp.fc, vs)
+        return [B.add_plain(vs[0], _fc_bias_vec(rp))]
+
+    return run("tail", tail_fn, boot(xs, 3))
 
 
 def _fc_bias_vec(rp: ResNetPlans) -> np.ndarray:

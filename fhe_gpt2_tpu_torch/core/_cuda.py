@@ -148,7 +148,14 @@ def call(lib: str, fn: str, *args, cdll: ctypes.CDLL | None = None) -> None:
     the current device for the launch, and on this thread's current stream
     of that device; raise if it reports an error. Tensors are passed by data
     pointer, the stream last. ``cdll`` takes the entry from another build of
-    csrc/<lib>.cu than this tree's."""
+    csrc/<lib>.cu than this tree's.
+
+    Under CUDA-graph capture (``nn/backend.py`` ``jit_sealed``) the capture
+    stream is the current one, so the cluster launch is recorded as a
+    kernel node with its cluster dimension. What must not happen inside a
+    capture happens at the first launch, which a sealed call's warm pass
+    makes before capturing: the nvcc build, the library load and each
+    instantiation's module load."""
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
     entry = getattr(cdll or _lib(lib), fn)

@@ -16,7 +16,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from . import primes, ntt as nttmod, rns
+from . import primes, ntt as nttmod, rns, seal
 from .modmath import MAX_MODULUS, shoup, torch_word, word_dtype, \
     word_bits_of, word_tensor
 
@@ -178,7 +178,12 @@ class CkksContext:
         self._elt_to_step = None
 
     def _cached(self, key: tuple, build):
+        """The device constant under key, made by build() on first use; a
+        sealed call's first use raises (``core/seal.py``)."""
         if key not in self._cache:
+            s = seal.current()
+            if s is not None:
+                s.miss(f"context constant {key[0]!r}")
             self._cache[key] = build()
         return self._cache[key]
 
@@ -240,6 +245,9 @@ class CkksContext:
             limbs = self.data_limbs(limbs)
         key = tuple(limbs)
         if key not in self._level_tables:
+            s = seal.current()
+            if s is not None:
+                s.miss(f"NTT tables of {len(key)} limbs")
             self._level_tables[key] = self.ntt_all.slice(list(key))
         return self._level_tables[key]
 

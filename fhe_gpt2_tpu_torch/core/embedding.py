@@ -3,8 +3,9 @@
 The port's copy of ``fhe_gpt2_tpu/core/embedding.py``. The evaluation
 network is the same butterfly graph as the NTT (core/ntt.py) over C with
 ζ = exp(iπ/n), so slot j holds m(ζ^{5^j mod 2n}) in exactly the NTT's slot
-order. ``Evaluator._encode`` reduces the rounded coefficients modulo each
-limb on the context's device.
+order. ``encode`` returns the residues as host words, as the JAX package's
+does; ``Evaluator._encode`` reduces the rounded coefficients modulo each
+limb on the context's device instead.
 
 As in the JAX package, the host transform of ``encode_to_coeffs`` and the
 CRT composition of ``decode`` run in the native runtime
@@ -69,11 +70,10 @@ def coeff_transform(x: np.ndarray) -> np.ndarray:
     return x / n
 
 
-def encode_to_coeffs(values: np.ndarray, scale: float, ctx) -> np.ndarray:
-    """Complex slot values -> rounded integer coefficients (int64, centered).
-    Fewer than n/2 values are replicated cyclically (sparse slots). The
-    transform runs natively when the runtime is available; np.round and the
-    runtime's nearbyint both round half to even."""
+def _scaled_evals(values, scale: float, ctx) -> np.ndarray:
+    """The evaluation vector [n] of slot values at scale: fewer than n/2
+    values are replicated cyclically (sparse slots), and each slot's
+    conjugate fills its mirror point."""
     slots = ctx.n // 2
     values = np.asarray(values, dtype=np.complex128).ravel()
     if len(values) < slots:
@@ -83,6 +83,15 @@ def encode_to_coeffs(values: np.ndarray, scale: float, ctx) -> np.ndarray:
     evals = np.zeros(ctx.n, dtype=np.complex128)
     evals[ctx.slot_to_index] = values * scale
     evals[ctx.conj_slot_to_index] = np.conj(values) * scale
+    return evals
+
+
+def encode_to_coeffs(values: np.ndarray, scale: float, ctx) -> np.ndarray:
+    """Complex slot values -> rounded integer coefficients (int64, centered).
+    Fewer than n/2 values are replicated cyclically (sparse slots). The
+    transform runs natively when the runtime is available; np.round and the
+    runtime's nearbyint both round half to even."""
+    evals = _scaled_evals(values, scale, ctx)
     if native.available():
         c = np.round(native.coeff_transform(evals))
     else:
@@ -90,6 +99,29 @@ def encode_to_coeffs(values: np.ndarray, scale: float, ctx) -> np.ndarray:
     if np.max(np.abs(c)) >= 2 ** 62:
         raise ValueError("encoded coefficient too large for int64 path")
     return c.astype(np.int64)
+
+
+def coeffs_to_rns(coeffs: np.ndarray, ctx, limbs) -> np.ndarray:
+    """Centered int64 coefficients -> RNS residues [len(limbs), n] in the
+    chain's word (numpy uint32, or uint64 on a u64 chain)."""
+    out = np.zeros((len(limbs), len(coeffs)), dtype=ctx.word)
+    for row, li in enumerate(limbs):
+        q = ctx.all_moduli[li]
+        out[row] = np.mod(coeffs, np.int64(q)).astype(ctx.word)
+    return out
+
+
+def encode(values, scale: float, ctx, limbs) -> np.ndarray:
+    """Slot values -> coefficient-form RNS residues [len(limbs), n] over
+    the limbs ``limbs``, as numpy words in ``ctx.word``: the host encoding
+    (the native transform and rounding when the runtime builds, else
+    ``encode_to_coeffs`` and ``coeffs_to_rns``). ``Evaluator._encode``
+    reduces the same coefficients on the context's device instead."""
+    if native.available():
+        return native.encode_evals_to_rns(
+            _scaled_evals(values, scale, ctx),
+            [ctx.all_moduli[i] for i in limbs]).astype(ctx.word)
+    return coeffs_to_rns(encode_to_coeffs(values, scale, ctx), ctx, limbs)
 
 
 def rns_to_centered_ints(res: np.ndarray, ctx, limbs) -> np.ndarray:

@@ -31,7 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import embedding, ntt as nttmod, tks
+from . import embedding, ntt as nttmod, seal, tks
 from .context import CkksContext
 from .keys import GaloisKeys, KSwitchKey, PublicKey, SecretKey, make_rng, \
     sample_gaussian, sample_ternary, sample_uniform_rns, _to_rns
@@ -116,15 +116,34 @@ class Evaluator:
         tables t, as the JAX package's ``embedding.encode`` gives them: the
         host coefficients, reduced modulo every limb by one exact int64
         remainder on ctx.device, in the chain's word."""
+        seal.host_copy("encoding a slot vector")
         coeffs = torch.from_numpy(self._host_coeffs(values, scale))
         return torch.remainder(coeffs.to(self.ctx.device)[None, :],
                                t.q.long()).to(t.q.dtype)
 
+    def _sealed_encode(self, kind: str, build, scale: float,
+                       level: int) -> Plaintext:
+        """build() outside a sealed call; inside one, the call's encoding
+        of this rank among its encodings (``core/seal.py``): made by the
+        warm pass, read back afterwards."""
+        s = seal.current()
+        if s is None:
+            return build()
+        key = (kind, s.n_encodes, level, scale)
+        s.n_encodes += 1
+        pt = s.encodes.get(key)
+        if pt is None:
+            s.miss(f"encoding {key}")
+            pt = s.encodes[key] = build()
+        return pt
+
     def make_plain(self, values, scale: float, level: int) -> Plaintext:
         """Encode a slot vector (host) into an NTT-form plaintext."""
-        t = self.ctx.tables(level)
-        return Plaintext(data=nttmod.ntt(self._encode(values, scale, t), t),
-                         scale=scale, level=level)
+        def build():
+            t = self.ctx.tables(level)
+            return Plaintext(data=nttmod.ntt(self._encode(values, scale, t),
+                                             t), scale=scale, level=level)
+        return self._sealed_encode("plain", build, scale, level)
 
     def decode_plain(self, pt: Plaintext, num_slots=None) -> np.ndarray:
         res = to_numpy_word(nttmod.intt(pt.data.contiguous(),
@@ -168,8 +187,14 @@ class Evaluator:
                           a.scale, a.level)
 
     def _const(self, m: int, level: int) -> torch.Tensor:
-        return word_tensor(self.ctx.const_residues(
-            m, self.ctx.data_limbs(level)), self.ctx.device, word=self.ctx.word)
+        """[m mod q_i] over the limbs held below level, on the device: made
+        from the host per call, or, inside a sealed call, the call's own
+        copy keyed by (m, level), made by its warm pass."""
+        return seal.device_constant(
+            (m, level), f"constant {m} at level {level}",
+            lambda: word_tensor(self.ctx.const_residues(
+                m, self.ctx.data_limbs(level)), self.ctx.device,
+                word=self.ctx.word))
 
     def add_const(self, a: Ciphertext, value: float) -> Ciphertext:
         """a + value broadcast over slots (no level/scale cost)."""
@@ -380,9 +405,11 @@ class Evaluator:
     def make_plain_ext(self, values, scale: float, level: int) -> Plaintext:
         """Encode a slot vector over the extended key basis QP (data limbs +
         special primes): the operand of the double-hoisted masked sums."""
-        t = self.ctx.tables(self.ctx.key_limbs(level))
-        return Plaintext(data=nttmod.ntt(self._encode(values, scale, t), t),
-                         scale=scale, level=level)
+        def build():
+            t = self.ctx.tables(self.ctx.key_limbs(level))
+            return Plaintext(data=nttmod.ntt(self._encode(values, scale, t),
+                                             t), scale=scale, level=level)
+        return self._sealed_encode("ext", build, scale, level)
 
     def hoisted_rotations_ext(self, a: Ciphertext,
                               steps: list[int]) -> list[torch.Tensor]:

@@ -16,7 +16,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from . import ntt as nttmod
+from . import ntt as nttmod, seal
 from .context import CkksContext
 from .modmath import add_mod, neg_mod, mul_mod, mul_mod_shoup, shoup, \
     word_dtype, word_tensor
@@ -86,13 +86,20 @@ class KSwitchKey:
 
     def sliced(self, key_limbs: tuple, D: int) -> torch.Tensor:
         k = (key_limbs, D)
+        s = seal.current()
         if k not in self._sliced:
+            if s is not None:
+                s.miss(f"key slice of {len(key_limbs)} limbs")
             rows = (key_limbs if self.limbs is None
                     else [self.limbs.index(j) for j in key_limbs])
             idx = torch.as_tensor(rows, dtype=torch.long,
                                   device=self.data.device)
             self._sliced[k] = (self.data[:D].index_select(2, idx)
                                .transpose(0, 1).contiguous())
+        if s is not None:
+            # The sealed call holds what its program reads: release_caches
+            # may clear _sliced while the call lives.
+            s.hold(self._sliced[k])
         return self._sliced[k]
 
 

@@ -30,6 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import seal
+
 _M31 = (1 << 31) - 1
 _M32 = (1 << 32) - 1
 _M60 = (1 << 60) - 1
@@ -237,7 +239,9 @@ def word_tensor(values, device, shape=None, word=np.uint32) -> torch.Tensor:
 
     Residues keep their value; Shoup/Barrett words at or above 2**31
     (2**63) read back as negative on the host and as the unsigned word in a
-    kernel or in the int64 route's shifts and masks."""
+    kernel or in the int64 route's shifts and masks. Not inside a sealed
+    call's sealed run (``core/seal.py``): it copies from the host."""
+    seal.host_copy("word_tensor")
     a = np.asarray(values, dtype=np.uint64)
     if word_bits_of(word) == 32:
         a = a.astype(np.uint32)
@@ -250,11 +254,13 @@ def word_tensor(values, device, shape=None, word=np.uint32) -> torch.Tensor:
 
 def to_numpy_u32(t: torch.Tensor) -> np.ndarray:
     """int32 word tensor -> uint32 numpy array with the same bits."""
+    seal.host_copy("to_numpy_u32")
     return t.detach().cpu().contiguous().numpy().view(np.uint32)
 
 
 def to_numpy_u64(t: torch.Tensor) -> np.ndarray:
     """int64 word tensor -> uint64 numpy array with the same bits."""
+    seal.host_copy("to_numpy_u64")
     return t.detach().cpu().contiguous().numpy().view(np.uint64)
 
 

@@ -75,7 +75,8 @@ class NttTables:
 
     def slice(self, idx: list[int]) -> "NttTables":
         """Tables restricted to a subset of limbs (contiguous copies, so the
-        kernels can take them as they are)."""
+        kernels can take them as they are). Copies its index from the host:
+        reached through ``CkksContext.tables``, which makes each set once."""
         i = torch.as_tensor(list(idx), dtype=torch.long, device=self.device)
 
         def s(x):

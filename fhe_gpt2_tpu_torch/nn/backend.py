@@ -11,23 +11,35 @@ bootstrap) are written once against this small protocol and run on:
     fake decrypt/re-encrypt during bring-up).
 
 Mask operands are host numpy arrays; the CkksBackend encodes them on demand
-and caches them by (array identity, level, scale).
+and caches them by (array identity, level, scale), or, under sequential
+keys, by (call rank, level, scale).
 
-The port runs eagerly: every op is issued as it is called, and
-``CkksBackend.bootstrap`` calls ``Bootstrapper.bootstrap``. The JAX
-package's program caching (``jit_sealed``/``rebind_sealed`` and the
-sequential cache keys) has no counterpart here; capturing fixed-shape
-segments in CUDA graphs is later performance work.
+Ops run eagerly, each issued as it is called. ``jit_sealed`` is the
+counterpart of the JAX package's program caching: it seals a function
+over ciphertexts into a CUDA graph on the card (``torch.cuda.CUDAGraph``),
+captured after one eager warm pass that makes every mask, constant and
+table the function reads, and replayed with no Python in the loop.
+``rebind_sealed`` points a sealed call at another function of the same
+structure, which gets its own warm pass and graph.
+``CkksBackend.bootstrap`` takes ``Bootstrapper.bootstrap_jitted`` (each
+bootstrap stage a sealed call) for a ciphertext on the card, as the JAX
+package takes it for a concrete one. On the CPU a sealed call runs its
+function eagerly over its own caches, where a miss raises as a host copy
+inside a capture would (``core/seal.py``).
 """
 
 from __future__ import annotations
 
+import gc
+import threading
+import time
 from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..core import seal
 from ..core.context import CkksContext
 from ..core.evaluator import (
     Ciphertext, Decryptor, Encryptor, Evaluator, Plaintext, _scales_close,
@@ -211,6 +223,20 @@ class CkksBackend:
     # Take the single-hoisted LT path (a mod-down per baby rotation) in
     # place of the double-hoisted one.
     no_ext_hoist: bool = False
+    # The memory pool every CUDA graph of this backend captures into (they
+    # replay one after another), and the segment drivers' sealed calls by
+    # model (cnn/resnet.py, nn/model.py), kept for the next forward.
+    _graph_pool: object = None
+    _segments: dict = field(default_factory=dict)
+    # Held across every sealed call's warm pass, capture and replay, and
+    # across a staged bootstrap: a graph's static tensors and the pool are
+    # shared state, so two threads (the service's workers) take turns. The
+    # event marks the end of the last replay, which the next one waits for
+    # on its own stream.
+    _seal_lock: object = field(default_factory=threading.RLock, init=False,
+                               repr=False, compare=False)
+    _replayed: object = field(default=None, init=False, repr=False,
+                              compare=False)
 
     @property
     def slots(self) -> int:
@@ -233,10 +259,50 @@ class CkksBackend:
             self._cache_bytes -= gone.data.numel() * gone.data.element_size()
         return pt
 
-    def _plain(self, v: np.ndarray, level: int, scale: float) -> Plaintext:
-        key = ("q", id(v), level, scale)
+    def _key(self, kind: str, v, level: int, scale: float) -> tuple:
+        # Homogeneous tuples, kind first, as the JAX package's keys: by the
+        # mask's rank in a seq-keyed sealed call (its Seal counts, per
+        # thread), so two kernels of the same structure key their masks
+        # alike, else by the array's identity.
+        s = seal.current()
+        if s is not None and s.seq is not None:
+            s.seq[0] += 1
+            return (kind, s.seq[0], level, scale)
+        return (kind, id(v), level, scale)
+
+    def _cached_plain(self, kind: str, v, level: int, scale: float,
+                      encode) -> Plaintext:
+        """The mask v at (level, scale), encoded by encode() on a miss.
+        Inside a sealed call the call's own masks answer first, and a miss
+        raises once the call is sealed; its warm pass records every mask
+        it reads (an id()-keyed one with its source array pinned)."""
+        key = self._key(kind, v, level, scale)
+        s = seal.current()
+        if s is not None:
+            out = s.plains.get(key)
+            if out is not None:
+                return out
+            s.miss(f"mask {key}")
+        # Encoded outside the seal: a mask is held here, not among the
+        # evaluator's own encodings (Evaluator._sealed_encode), whose ranks
+        # must run alike in the warm pass and in every later run.
+        if s is not None and s.seq is not None:
+            # Sequential keys: the call's own cache, and no other.
+            with seal.using(None):
+                out = s.plains[key] = encode()
+            return out
         out = self._plain_cache.get(key)
         if out is None:
+            with seal.using(None):
+                out = encode()
+            self._store(key, v, out)
+        if s is not None:
+            s.plains[key] = out
+            s.hold(v)
+        return out
+
+    def _plain(self, v: np.ndarray, level: int, scale: float) -> Plaintext:
+        def encode():
             a = np.asarray(v)
             if a.ndim > 1 and a.shape[-1] == self.slots:
                 # Batched mask [batch..., slots]: one plaintext per row,
@@ -246,27 +312,26 @@ class CkksBackend:
                        for r in a.reshape(-1, self.slots)]
                 data = torch.stack([p.data for p in pts]).reshape(
                     *a.shape[:-1], *pts[0].data.shape)
-                out = Plaintext(data=data, scale=scale, level=level)
-            else:
-                out = self.ev.make_plain(a.ravel(), scale, level)
-            self._store(key, v, out)
-        return out
+                return Plaintext(data=data, scale=scale, level=level)
+            return self.ev.make_plain(a.ravel(), scale, level)
+        return self._cached_plain("q", v, level, scale, encode)
 
     def _plain_ext(self, v: np.ndarray, level: int, scale: float) -> Plaintext:
-        key = ("ext", id(v), level, scale)
-        out = self._plain_cache.get(key)
-        if out is None:
-            out = self._store(key, v, self.ev.make_plain_ext(
-                np.asarray(v).ravel(), scale, level))
-        return out
+        return self._cached_plain("ext", v, level, scale, lambda: (
+            self.ev.make_plain_ext(np.asarray(v).ravel(), scale, level)))
 
     def release_caches(self) -> None:
-        """Drop every cached plaintext and every per-level key slice of the
-        evaluator's keys, giving their device memory back; what is dropped
-        is made again on its next use."""
+        """Drop every cached plaintext, every per-level key slice of the
+        evaluator's keys and the sealed programs of the segment drivers and
+        of the Bootstrapper's stages (with their graphs), giving their
+        device memory back; what is dropped is made again on its next
+        use."""
         self._plain_cache.clear()
         self._keepalive.clear()
         self._cache_bytes = 0
+        self._segments.clear()
+        if self.boot is not None:
+            vars(self.boot).pop("_staged_jit", None)
         ev = self.ev
         keys = list(ev.galois_keys.keys.values()) if ev.galois_keys else []
         for key in keys + [ev.relin_key]:
@@ -311,8 +376,12 @@ class CkksBackend:
         when a decryptor and an encryptor are bound."""
         if a.level > self._floor:
             return a
-        if self.boot is not None or (self.dec is not None
-                                     and self.enc is not None):
+        if self.boot is not None:
+            return self.bootstrap(a)
+        # The fake refresh decrypts on the host: not inside a sealed call,
+        # as the JAX package skips it under a trace.
+        if (self.dec is not None and self.enc is not None
+                and seal.current() is None):
             return self.bootstrap(a)
         return a
 
@@ -398,9 +467,23 @@ class CkksBackend:
         return unstack_cts(a)
 
     def take_batch(self, a, idx: tuple):
-        """Gather over the batch axes (component axis 0 untouched)."""
-        return Ciphertext(a.data[(slice(None),) + tuple(idx)].contiguous(),
+        """Gather over the batch axes (component axis 0 untouched). Index
+        arrays go to the device once per sealed call (``_device_index``)."""
+        idx = tuple(self._device_index(i, a.data.device) for i in idx)
+        return Ciphertext(a.data[(slice(None),) + idx].contiguous(),
                           a.scale, a.level)
+
+    @staticmethod
+    def _device_index(i, device):
+        """A numpy index array as an int64 tensor on device: copied per call,
+        or inside a sealed call its own copy keyed by the array's contents,
+        made by the warm pass. Slices and integers pass as they are."""
+        if not isinstance(i, np.ndarray):
+            return i
+        a = np.ascontiguousarray(i, dtype=np.int64)
+        return seal.device_constant(
+            ("index", a.shape, a.tobytes()), f"index of shape {a.shape}",
+            lambda: torch.from_numpy(a).to(device))
 
     def reduce_sum_batch(self, a, axis: int = 0):
         return Ciphertext(mod_sum(a.data, self.ctx.tables(a.level).q,
@@ -481,6 +564,8 @@ class CkksBackend:
         package."""
         if self.boot is not None:
             # Entry normalisation happens inside the Bootstrapper.
+            if self._boot_sealed(a):
+                return self.boot.bootstrap_jitted(a)
             return self.boot.bootstrap(a, **kw)
         # Bring-up path: decrypt/re-encrypt.
         assert self.dec is not None and self.enc is not None
@@ -496,6 +581,15 @@ class CkksBackend:
         return a
 
     # -- I/O ----------------------------------------------------------------
+    def _boot_sealed(self, a) -> bool:
+        """Whether bootstrap takes the staged sealed pipeline (each stage a
+        CUDA graph, captured once and replayed): for a ciphertext on the
+        card, outside a sealed call (inside one the pipeline runs in the
+        caller's program), with a bootstrapper that is not a mesh
+        position's (``Bootstrapper.on``; the mesh runs eagerly)."""
+        return (a.data.is_cuda and not self.boot.eager_only
+                and seal.current() is None)
+
     def from_slots(self, arr: np.ndarray, level: Optional[int] = None):
         level = level or self.default_level or self.ctx.L
         arr = np.asarray(arr, dtype=np.float64)
@@ -511,3 +605,246 @@ class CkksBackend:
             return np.stack([np.real(self.dec.decrypt(c))
                              for c in unstack_cts(a)])
         return np.real(self.dec.decrypt(a))
+
+
+# ---------------------------------------------------------------------------
+# Sealed calls: jit_sealed / rebind_sealed on CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _flatten(x, leaves: list):
+    """The structure of x (Ciphertexts and other values in lists and
+    tuples) with the Ciphertexts' tensors appended to leaves; a
+    Ciphertext's scale and level are part of the structure."""
+    if isinstance(x, Ciphertext):
+        leaves.append(x.data)
+        return ("ct", x.scale, x.level)
+    if isinstance(x, (list, tuple)):
+        return (type(x), tuple(_flatten(v, leaves) for v in x))
+    return ("v", x)
+
+
+def _unflatten(d, it):
+    if d[0] == "ct":
+        return Ciphertext(next(it), d[1], d[2])
+    if d[0] == "v":
+        return d[1]
+    return d[0](_unflatten(c, it) for c in d[1])
+
+
+def _signature(args) -> tuple:
+    """(structure, tensors, key): key is the input signature (levels,
+    scales, shapes, words) a sealed call keys its programs by."""
+    leaves: list = []
+    d = _flatten(args, leaves)
+    return d, leaves, (d, tuple((tuple(t.shape), t.dtype) for t in leaves))
+
+
+class _Graph:
+    """One captured graph and the static tensors it reads and writes."""
+
+    def __init__(self, graph, static_in, static_out):
+        self.graph = graph
+        self.static_in = static_in
+        self.static_out = static_out
+
+
+class _Program:
+    """A sealed call's program for one input signature: its seal (masks,
+    constants, encodings, held tensors), its input and output structure,
+    and on the card its graph."""
+
+    def __init__(self, s: seal.Seal, in_def, out_def):
+        self.seal = s
+        self.in_def = in_def
+        self.out_def = out_def
+        self.graph: _Graph | None = None
+        self.warm_s = 0.0
+        self.capture_s = 0.0
+
+
+class SealedCall:
+    """``jit_sealed``'s callable: fn's signature, one program per input
+    signature. See ``jit_sealed``. Calls from several threads take turns
+    (the backend's ``_seal_lock``)."""
+
+    def __init__(self, B: "CkksBackend", fn, example_args: tuple,
+                 seq_keys: bool):
+        self._B = B
+        self.fn = fn
+        self.seq_keys = seq_keys
+        self.programs: dict = {}
+        self._first = None
+        with B._seal_lock:
+            self._make(example_args)
+
+    def _run(self, s: seal.Seal, args: tuple, sealed: bool):
+        """fn(*args) with s as this thread's running seal (warm or sealed),
+        counting sequential keys in s when the call has them."""
+        s.start(sealed, self.seq_keys)
+        try:
+            with seal.using(s):
+                return self.fn(*args)
+        finally:
+            s.sealed = True
+
+    def _make(self, args: tuple):
+        """Warm pass over args, then, on the card, the capture. Returns the
+        warm pass's output, the first call's result."""
+        in_def, leaves, sig = _signature(args)
+        s = seal.Seal()
+        t0 = time.perf_counter()
+        out = self._run(s, args, sealed=False)
+        prog = _Program(s, in_def, _flatten(out, []))
+        cuda = bool(leaves) and leaves[0].is_cuda
+        if cuda:
+            torch.cuda.synchronize(leaves[0].device)
+        prog.warm_s = time.perf_counter() - t0
+        if cuda:
+            t0 = time.perf_counter()
+            prog.graph = self._capture(prog, leaves)
+            prog.capture_s = time.perf_counter() - t0
+        self.programs[sig] = prog
+        self._first = (args, out)
+        return out
+
+    def _capture(self, prog: _Program, leaves: list) -> _Graph:
+        """Capture fn over static copies of the inputs into a CUDA graph in
+        the backend's pool. Whatever fails in the capture raises."""
+        B = self._B
+        dev = leaves[0].device
+        static_in = [t.clone() for t in leaves]
+        args = _unflatten(prog.in_def, iter(static_in))
+        if B._graph_pool is None:
+            B._graph_pool = torch.cuda.graph_pool_handle()
+        g = torch.cuda.CUDAGraph()
+        # torch.cuda.graph captures on a side stream, and collects garbage
+        # and empties the allocator's cache first, which also frees a pool
+        # whose graphs are all gone (after a failed capture, or
+        # release_caches) before the pool is taken again. No collection
+        # may run inside the capture: a CUDA object freed there would
+        # invalidate it.
+        collecting = gc.isenabled()
+        try:
+            with torch.cuda.device(dev):
+                with torch.cuda.graph(g, pool=B._graph_pool,
+                                      capture_error_mode="thread_local"):
+                    gc.disable()
+                    out = self._run(prog.seal, args, sealed=True)
+        finally:
+            if collecting:
+                gc.enable()
+        static_out: list = []
+        if _flatten(out, static_out) != prog.out_def:
+            raise RuntimeError("sealed call: the captured function's output "
+                               "structure differs from its warm pass's")
+        return _Graph(g, static_in, static_out)
+
+    def __call__(self, *args):
+        with self._B._seal_lock:
+            return self._call(args)
+
+    def _call(self, args: tuple):
+        first, self._first = self._first, None
+        if (first is not None and len(first[0]) == len(args)
+                and all(a is b for a, b in zip(first[0], args))):
+            return first[1]
+        in_def, leaves, sig = _signature(args)
+        prog = self.programs.get(sig)
+        if prog is None:
+            out = self._make(args)
+            self._first = None
+            return out
+        if prog.graph is None:
+            return self._run(prog.seal, args, sealed=True)
+        gr, B = prog.graph, self._B
+        with torch.cuda.device(leaves[0].device):
+            # The graphs share the pool: wait for the last replay, which
+            # may have run on another stream.
+            stream = torch.cuda.current_stream()
+            if B._replayed is not None:
+                stream.wait_event(B._replayed)
+            for buf, t in zip(gr.static_in, leaves):
+                buf.copy_(t)
+            gr.graph.replay()
+            outs = [t.clone() for t in gr.static_out]
+            B._replayed = torch.cuda.Event()
+            B._replayed.record(stream)
+        return _unflatten(prog.out_def, iter(outs))
+
+
+def jit_sealed(B: "CkksBackend", fn, *example_args, seq_keys: bool = False):
+    """Seal fn, a function of ciphertexts on backend B, into a program: the
+    counterpart of the JAX package's jit with the keys and the masks as
+    arguments. Returns a callable with fn's signature.
+
+      1. Warm pass: fn runs eagerly over example_args, making every mask
+         (under ``seq_keys`` in the call's own cache, keyed ("q"/"ext",
+         rank, level, scale) as the JAX package's), every constant and
+         encoding (``core/seal.py``) and every table it reads. Its output
+         is the first call's result.
+      2. On the card, fn is captured into a CUDA graph over static input
+         copies, in the backend's graph pool, keyed by the input signature
+         (levels, scales, shapes); the call holds the masks, constants and
+         key slices the graph reads.
+      3. A call copies its inputs into the static tensors, replays the
+         graph and returns copies of the outputs. On the CPU it runs fn
+         eagerly over the call's caches, where a miss raises
+         (``SealedCacheMiss``), as a host copy in a capture would.
+
+    A new input signature makes a new program (warm pass and capture). A
+    capture that fails raises: nothing falls back to eager."""
+    return SealedCall(B, fn, example_args, seq_keys)
+
+
+def rebind_sealed(call: SealedCall, fn_other, *example_args) -> SealedCall:
+    """``call`` re-targeted at fn_other, a function of the same structure
+    (the next block of a stage: the same rotations, other weights): a warm
+    pass of fn_other under sequential keys makes its masks, and on the card
+    a graph of its own reads them. The JAX package shares the base's
+    compiled program, its masks passed as arguments; on the card a capture
+    costs about a second once, while a shared graph would copy the
+    function's masks into the graph's on every switch and keep the base's
+    a second time (``PERF.md``, PR 11), so every function keeps its own
+    graph, and with it its own constants (a GPT-2 layer's Newton seed)."""
+    return SealedCall(call._B, fn_other, example_args, True)
+
+
+def graph_pool_bytes(B: "CkksBackend") -> int:
+    """Bytes the CUDA caching allocator holds in B's graph pool (0 before
+    the first capture)."""
+    if B._graph_pool is None:
+        return 0
+    pool = tuple(B._graph_pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+def segment_runner(B, kind: str, model):
+    """run(name, fn, vs, part=None) of a segment driver (cnn/resnet.py,
+    nn/model.py ``_forward_jit``): the JAX package's two-level cache. The
+    exact key (name, part, signature) holds one sealed call per part (a
+    block's or a layer's weights) at one signature; the structural key
+    (name, signature) holds the first, which later parts rebind to
+    (``rebind_sealed``). Both live on the backend, by model, so that a
+    second forward replays what the first captured. A backend with no
+    device program (the plain simulator) runs each fn as it is."""
+    if not isinstance(B, CkksBackend):
+        return lambda name, fn, vs, part=None: fn(vs)
+    _, jcache, struct_cache = B._segments.setdefault(
+        (kind, id(model)), (model, {}, {}))
+
+    def run(name, fn, vs, part=None):
+        sig = (tuple(v.level for v in vs), tuple(v.scale for v in vs),
+               tuple(v.data.shape for v in vs))
+        key = (name, part, sig)
+        jf = jcache.get(key)
+        if jf is None:
+            base = struct_cache.get((name, sig))
+            if base is None:
+                jf = jit_sealed(B, fn, vs, seq_keys=True)
+                struct_cache[(name, sig)] = jf
+            else:
+                jf = rebind_sealed(base, fn, vs)
+            jcache[key] = jf
+        return jf(vs)
+    return run

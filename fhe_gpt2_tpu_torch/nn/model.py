@@ -9,8 +9,9 @@ variant goes through the PIR path, net/).
 
 The port's copy of ``fhe_gpt2_tpu/nn/model.py``. ``build_gpt2_plans``,
 ``embed``, ``logits`` and ``calibrate_newton_inits`` are unchanged. The
-forward runs eagerly: the JAX package's jitted segment driver
-(``_forward_jit``) is program caching and has no counterpart here. Added for
+forward runs eagerly, or through the segment driver (``_forward_jit``),
+whose segments are sealed programs (CUDA graphs on the card); unlike the
+JAX driver's, a layer never runs another layer's constants. Added for
 runs without ``transformers``: ``synthetic_weights`` (an HF-format state
 dict drawn from a numpy generator), ``forward_float`` (the float64 GPT-2
 forward, the oracle) and ``rowmax_newton_inits`` (LayerNorm Newton seeds
@@ -110,28 +111,65 @@ def embed(plans: GPT2ModelPlans, token_ids: np.ndarray) -> np.ndarray:
 
 def forward(B, xs, plans: GPT2ModelPlans, jit: bool = False,
             boot_need: int = 0):
-    """Run all blocks + final LN on backend values (act-layout ct list),
-    eagerly, each op issued as it is called; refreshes happen where the
-    backend's level floor asks for them.
+    """Run all blocks + final LN on backend values (act-layout ct list).
 
-    jit=True raises ValueError: the JAX package's jitted segment driver is
-    program caching for the TPU, and the port has no counterpart of it.
-    boot_need > 0 raises ValueError too: it places refreshes between the
-    jitted segments only, and the JAX package's eager path ignores it, so
-    no caller should believe a refresh was placed."""
+    Eagerly by default, each op issued as it is called; refreshes happen
+    where the backend's level floor asks for them. jit=True runs the
+    segment driver (``_forward_jit``): each block is four sealed programs
+    (LN1, attention+residual, LN2, MLP+residual; CUDA graphs on the card),
+    and boot_need > 0 puts B.maybe_bootstrap(·, boot_need) before each
+    segment, outside the programs. boot_need acts only under jit=True, as
+    in the JAX package."""
     if jit:
-        raise ValueError(
-            "forward(jit=True): the port has no jitted segment driver (the "
-            "JAX package's _forward_jit is XLA program caching); call "
-            "forward(..., jit=False), which runs the same blocks eagerly")
-    if boot_need:
-        raise ValueError(
-            f"forward(boot_need={boot_need}): boot_need places refreshes "
-            "between jitted segments only, which the port does not have; "
-            "the eager forward refreshes at the backend's level floor")
+        return _forward_jit(B, xs, plans, boot_need)
     for bp in plans.blocks:
         xs = L.block(B, xs, plans.sh, bp)
     return L.layer_norm(B, xs, plans.sh, plans.ln_f)
+
+
+def _forward_jit(B, xs, plans: GPT2ModelPlans, boot_need: int = 0):
+    """The JAX package's segment driver, with one difference: a layer
+    has a program of its own (``rebind_sealed``), so each layer keeps its
+    own LayerNorm Newton seed where the JAX driver's shared program keeps
+    layer 0's."""
+    from .backend import segment_runner
+
+    sh = plans.sh
+    run = segment_runner(B, "gpt2", plans)
+
+    def boot(vs):
+        if not boot_need:
+            return vs
+        return [B.maybe_bootstrap(v, boot_need) for v in vs]
+
+    for li, bp in enumerate(plans.blocks):
+        n = len(xs)
+
+        def ln1_fn(vs, bp=bp):
+            return L.layer_norm(B, vs, sh, bp.ln1)
+
+        def attn_fn(both, bp=bp, n=n):
+            h, res = both[:n], both[n:]
+            a = L.attention(B, h, sh, bp.attn)
+            return [B.add(x, y) for x, y in zip(res, a)]
+
+        def ln2_fn(vs, bp=bp):
+            return L.layer_norm(B, vs, sh, bp.ln2)
+
+        def mlp_fn(both, bp=bp, n=n):
+            h, res = both[:n], both[n:]
+            m = L.mlp(B, h, sh, bp.mlp)
+            return [B.add(x, y) for x, y in zip(res, m)]
+
+        h = run("ln1", ln1_fn, boot(xs), part=li)
+        xs = run("attn", attn_fn, boot(h) + xs, part=li)
+        h = run("ln2", ln2_fn, boot(xs), part=li)
+        xs = run("mlp", mlp_fn, boot(h) + xs, part=li)
+
+    def lnf_fn(vs):
+        return L.layer_norm(B, vs, sh, plans.ln_f)
+
+    return run("ln_f", lnf_fn, boot(xs))
 
 
 def logits(plans: GPT2ModelPlans, hidden: np.ndarray) -> np.ndarray:

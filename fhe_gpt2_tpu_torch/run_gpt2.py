@@ -11,15 +11,18 @@ one JSON line.
 
 The flags are the JAX driver's, except that --cpu asks for the CPU device
 (without it the driver runs on the CUDA card, and raises when there is
-none), --jit is not ported (the forward runs eagerly, so --boot-need, which
-acts only under --jit, must stay 0), and three flags choose inputs that the
-JAX driver fixes: --log-scale sets the composite chain's scale (the JAX
-driver's 50 is the default), --weights synthetic draws GPT-2-small-format
+none), and three flags choose inputs that the JAX driver fixes: --log-scale
+sets the composite chain's scale (the JAX driver's 50 is the default),
+--weights synthetic draws GPT-2-small-format
 weights from numpy seed 0 and takes the float64 oracle ``forward_float``
 (no ``transformers`` needed; the default ``hf`` builds HF's randomly
 initialized GPT-2 as the JAX driver does), and --newton-inits rowmax seeds
 each LayerNorm's Newton rsqrt at 1.25 times the float forward's largest row
-in place of the mean (the default). One block at GPT-2 small's width on the
+in place of the mean (the default). --jit runs the segment driver (four
+sealed programs per block, CUDA graphs on the card, each layer with its
+own), and --boot-need N
+refreshes, outside the programs, each segment input with N logical levels
+or fewer left. One block at GPT-2 small's width on the
 80-limb composite chain, with the decrypt/re-encrypt refresh, is
 
     python -m fhe_gpt2_tpu_torch.run_gpt2 --layers 1 --hidden 768 \\
@@ -69,9 +72,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--real-boot", action="store_true",
                     help="use the real CKKS bootstrap as the refresh "
                          "(default: decrypt/re-encrypt to the chain top)")
+    ap.add_argument("--jit", action="store_true",
+                    help="segment driver: four sealed programs per block "
+                         "(LN1/attn/LN2/MLP; CUDA graphs on the card), "
+                         "layers with equal constants sharing one")
     ap.add_argument("--boot-need", type=int, default=0,
-                    help="acts only under the JAX driver's --jit, which the "
-                         "port does not have: must be 0")
+                    help="logical levels of headroom demanded before each "
+                         "segment under --jit (maybe_bootstrap); 0 = no "
+                         "between-segment refreshes")
     ap.add_argument("--ln-iters", type=int, default=12,
                     help="LayerNorm Newton rsqrt iterations")
     ap.add_argument("--digit-keys", action="store_true",
@@ -96,12 +104,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the plain PyTorch versions of the "
                          "kernels); without it the driver needs a CUDA card")
-    a = ap.parse_args(argv)
-    if a.boot_need:
-        ap.error("--boot-need acts only under --jit, which the port does "
-                 "not have; the eager forward refreshes at the backend's "
-                 "level floor")
-    return a
+    return ap.parse_args(argv)
 
 
 def device_of(a) -> str:
@@ -194,7 +197,7 @@ def main(argv=None):
     else:
         ses = build_session(a, m)
         B = ses.B
-        got = encrypted_forward(ses, m)
+        got = encrypted_forward(ses, m, jit=a.jit, boot_need=a.boot_need)
     dt = time.time() - t0
     err = float(np.abs(got - m.want).max())
     agree = float((M.logits(plans, got).argmax(-1)
@@ -304,14 +307,16 @@ def build_session(a, m: Model) -> Session:
                    galois_keys=len(ev.galois_keys.keys))
 
 
-def encrypted_forward(ses: Session, m: Model) -> np.ndarray:
+def encrypted_forward(ses: Session, m: Model, jit: bool = False,
+                      boot_need: int = 0) -> np.ndarray:
     """Encrypt the embedded activations, run the forward on the session's
-    backend and decrypt: the last hidden state [seq, hidden]."""
+    backend (the segment driver under jit, with boot_need) and decrypt: the
+    last hidden state [seq, hidden]."""
     from .nn import model as M
 
     B, sh = ses.B, m.sh
     xs = [B.from_slots(v) for v in sh.act.pack(m.emb)]
-    out = M.forward(B, xs, m.plans)
+    out = M.forward(B, xs, m.plans, jit=jit, boot_need=boot_need)
     return sh.act.unpack(np.stack([B.to_slots(o) for o in out]))
 
 

@@ -10,10 +10,14 @@ encrypted forward and prints one JSON line per image and a summary line.
 
 The flags are the JAX driver's, except that --cpu asks for the CPU device
 (without it the driver runs on the CUDA card, and raises when there is
-none), --jit is not ported (the forward runs eagerly) and --log-scale sets
-the composite chain's scale (the JAX driver's 50 is the default). --plain
-runs the slot-exact simulator (no crypto), the fast path for algorithm
-validation. The ResNet-20 bootstrapped run on the composite chain is
+none) and --log-scale sets the composite chain's scale (the JAX driver's
+50 is the default). --jit runs the segment driver: each forward segment a
+sealed program (a CUDA graph on the card, captured on the first image and
+replayed on the next ones, which reuse the first image's keys and
+backend), the bootstraps between segments through the staged sealed
+pipeline. --plain runs the slot-exact simulator (no crypto), the fast path
+for algorithm validation. The ResNet-20 bootstrapped run on the composite
+chain is
 
     python -m fhe_gpt2_tpu_torch.run_resnet --composite --log-scale 54 \\
         --real-boot --levels 39 --nsp 16 --digit-keys --boot-factors 3 \\
@@ -72,6 +76,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--sign-log2-err", type=float, default=None,
                     help="composite-sign target error, log2 (default: -12 "
                          "u64 and composite / -6 w32)")
+    ap.add_argument("--jit", action="store_true",
+                    help="segment driver: each forward segment a sealed "
+                         "program (a CUDA graph on the card), bootstraps "
+                         "between segments staged the same way")
     ap.add_argument("--real-boot", action="store_true",
                     help="use the real CKKS bootstrap between blocks "
                          "(default: the decrypt/re-encrypt level reset)")
@@ -175,7 +183,7 @@ def main(argv=None):
     summary = dict(depth=a.depth, dataset=a.dataset, images=a.images,
                    logn=a.logn, levels=a.levels, word=a.word,
                    composite=bool(a.composite), nsp=a.nsp,
-                   real_boot=a.real_boot, jit=False,
+                   real_boot=a.real_boot, jit=a.jit,
                    batch_images=bool(a.batch_images),
                    oracle_agreement=n_ok / len(results),
                    seconds_per_image=round(
@@ -273,6 +281,7 @@ def build_session(a, rp, img) -> Session:
     import torch
 
     from .cnn import resnet as R
+    from .core import seal
     from .core.context import CkksContext
     from .core.evaluator import Decryptor, Encryptor, Evaluator
     from .core.keys import KeyGenerator
@@ -319,6 +328,9 @@ def build_session(a, rp, img) -> Session:
         inner = B.bootstrap
 
         def timed_boot(v, **kw):
+            if seal.current() is not None:
+                # Inside a sealed program, where nothing may synchronize.
+                return inner(v, **kw)
             t0 = time.time()
             out = inner(v, **kw)
             if out.data.is_cuda:
@@ -334,10 +346,16 @@ def build_session(a, rp, img) -> Session:
 
 def _run_encrypted(a, rp, imgs):
     """Encrypted forward over `imgs` (stacked on the ct batch axis when
-    len > 1). Returns per-image logits."""
+    len > 1). Returns per-image logits. Under --jit the session (keys,
+    backend and with it the sealed programs) is built once and kept on
+    `a` for the next images."""
     from .cnn import resnet as R
 
-    s = build_session(a, rp, imgs[0])
+    s = getattr(a, "_session", None) if a.jit else None
+    if s is None:
+        s = build_session(a, rp, imgs[0])
+        if a.jit:
+            a._session = s
     a._boot_times = s.boot_times
     B = s.B
     packed = [R.pack_input(rp, img) for img in imgs]     # [n_img][n_cts]
@@ -346,7 +364,7 @@ def _run_encrypted(a, rp, imgs):
     else:
         xs = [B.from_slots(np.stack([p[i] for p in packed]))
               for i in range(len(packed[0]))]
-    out = R.forward(B, xs, rp)
+    out = R.forward(B, xs, rp, jit=a.jit)
     slots_out = B.to_slots(out[0])
     if len(imgs) == 1:
         return [R.logits_from_slots(rp, slots_out)]

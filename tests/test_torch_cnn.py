@@ -192,12 +192,18 @@ def test_plain_forward_and_rotation_set_equal_reference(nets):
     assert len(rec.key_steps()) > 0
 
 
-def test_forward_jit_raises(nets):
-    """The jitted segment driver is not ported: asking for it raises, it
-    never runs the eager path in silence."""
-    _, rp, _, img = nets
-    with pytest.raises(ValueError, match="jit"):
-        R.forward(PlainBackend(rp.slots), R.pack_input(rp, img), rp, jit=True)
+def test_forward_jit_equals_reference(nets):
+    """The segment driver (jit=True) on the plain simulator, where a
+    refresh is the identity and a segment runs as it is: the JAX package's
+    eager forward, value for value."""
+    _, rp, jrp, img = nets
+    xs = R.pack_input(rp, img)
+    jout = jR.forward(JPlainBackend(rp.slots), jR.pack_input(jrp, img), jrp)
+    for boot_between in (True, False):
+        out = R.forward(PlainBackend(rp.slots), list(xs), rp,
+                        boot_between=boot_between, jit=True)
+        assert len(out) == len(jout)
+        assert all(np.array_equal(a, b) for a, b in zip(out, jout))
 
 
 def _write_weights(root, w, folder):

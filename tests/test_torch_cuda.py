@@ -573,6 +573,227 @@ def test_gpt2_block_on_card_equals_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
+# Sealed calls: CUDA-graph capture and replay (nn/backend.py jit_sealed)
+# ---------------------------------------------------------------------------
+
+def _sealed_unit(dev):
+    """The unit op (multiply, relinearize, rotate by 1, rescale: all four
+    kernels) on the 5-level uint32 chain at logN=12, its backend and an
+    encryptor."""
+    from fhe_gpt2_tpu_torch.nn.backend import CkksBackend
+    ctx = _cached_ctx(dev, False, 12)
+    kg = KeyGenerator(ctx, seed=1)
+    ev = Evaluator(ctx, relin_key=kg.relin_key(),
+                   galois_keys=kg.galois_keys([1], conjugate=False))
+    enc = Encryptor(ctx, secret=kg.secret, seed=2)
+    B = CkksBackend(ctx=ctx, ev=ev, enc=enc, dec=Decryptor(ctx, kg.secret),
+                    default_level=ctx.L)
+
+    def unit(a, b):
+        return ev.rescale(ev.rotate(ev.multiply(a, b), 1))
+
+    def fresh(seed):
+        z = np.random.default_rng(seed).uniform(-1, 1, ctx.params.slots)
+        return enc.encrypt(ev.make_plain(z, ctx.params.scale, ctx.L))
+    return B, unit, fresh
+
+
+def _same_ct(got, want):
+    assert (got.scale, got.level) == (want.scale, want.level)
+    assert torch.equal(got.data, want.data)
+
+
+def test_sealed_unit_op_replays_equal_eager(cuda):
+    """jit_sealed's warm pass and capture launch every kernel (twice what
+    one eager call launches); replays launch through the graph only (the
+    wrappers' counts stay put) and equal the eager call, on the same
+    inputs, on new ones, and after another replay (outputs are copies)."""
+    from fhe_gpt2_tpu_torch.nn.backend import jit_sealed
+    B, unit, fresh = _sealed_unit(cuda)
+    x, y = fresh(1), fresh(2)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    want = unit(x, y)
+    torch.cuda.synchronize()
+    once = dict(_cuda.LAUNCHES)
+    assert all(v > 0 for v in once.values()), once
+    _cuda.reset_launches()
+    call = jit_sealed(B, unit, x, y)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES == {k: 2 * v for k, v in once.items()}
+    [prog] = call.programs.values()
+    assert prog.graph is not None and prog.seal.sealed
+    _same_ct(call(x, y), want)                 # the warm pass's output
+    x2, y2 = fresh(3), fresh(4)
+    torch.cuda.synchronize()
+    before = dict(_cuda.LAUNCHES)
+    r1 = call(x, y)
+    r2 = call(x2, y2)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES == before
+    _same_ct(r1, want)
+    _same_ct(r2, unit(x2, y2))
+    low = [B.ev.mod_switch_to(c, c.level - 1) for c in (x, y)]
+    _same_ct(call(*low), unit(*low))           # a new signature: warm pass
+    _same_ct(call(*low), unit(*low))           # and its own graph
+    assert len(call.programs) == 2
+
+
+def _sealed_boot(dev):
+    """A bootstrapper at logN=11 / 46 limbs, its backend, two entry
+    ciphertexts and their eager bootstraps."""
+    from fhe_gpt2_tpu_torch.boot.bootstrap import Bootstrapper, make_evalmod
+    from fhe_gpt2_tpu_torch.nn.backend import CkksBackend
+    ns = 64
+    params = CkksParams.create_composite(
+        logn=11, num_levels=22, log_scale=50, log_q0=55, log_special=31,
+        num_special=2, hamming_weight=16, sparse_slots=ns)
+    ctx = CkksContext(params, device=dev)
+    kg = KeyGenerator(ctx, seed=3)
+    ev = Evaluator(ctx, relin_key=kg.relin_key())
+    enc = Encryptor(ctx, secret=kg.secret, seed=4)
+    B = CkksBackend(ctx=ctx, ev=ev, enc=enc, default_level=ctx.L)
+    eps = params.scale / ctx.q0_float
+    boot = Bootstrapper(B, num_slots=ns, evalmod=make_evalmod(
+        K=12, eps=max(eps * 1.05, 2 ** -5), degree=45, arcsin_degree=3,
+        prec_dps=60))
+    ev.galois_keys = kg.galois_keys(boot.required_steps(), conjugate=True)
+    cts = [enc.encrypt(ev.make_plain(
+        np.random.default_rng(s).uniform(-1, 1, ns), params.scale,
+        ctx.base_limbs)) for s in (5, 6)]
+    return B, boot, cts, [boot.bootstrap(c) for c in cts]
+
+
+def test_sealed_bootstrap_stages_replay_equal_eager(cuda):
+    """bootstrap_jitted (each stage a graph) at logN=11 / 46 limbs: the
+    warm pass, a replay and a replay on another ciphertext equal the eager
+    bootstrap; CkksBackend.bootstrap takes it for a ciphertext on the
+    card."""
+    from fhe_gpt2_tpu_torch.nn.backend import graph_pool_bytes
+    B, boot, cts, want = _sealed_boot(cuda)
+    _same_ct(boot.bootstrap_jitted(cts[0]), want[0])
+    assert all(p.graph is not None for c in boot._staged_jit
+               for p in c.programs.values())
+    assert graph_pool_bytes(B) > 0
+    before = dict(_cuda.LAUNCHES)
+    _same_ct(boot.bootstrap_jitted(cts[0]), want[0])
+    _same_ct(boot.bootstrap_jitted(cts[1]), want[1])
+    B.boot = boot
+    _same_ct(B.bootstrap(cts[1]), want[1])
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES == before
+    assert all(len(c.programs) == 1 for c in boot._staged_jit)
+
+
+def test_sealed_bootstrap_from_two_threads(cuda):
+    """Two threads (the service's workers share one backend) bootstrap two
+    ciphertexts through CkksBackend.bootstrap at once, three times each,
+    the stages' first calls (warm passes and captures) included, one of
+    them on a stream of its own: every result is torch.equal to its eager
+    bootstrap."""
+    import threading
+    B, boot, cts, want = _sealed_boot(cuda)
+    B.boot = boot
+    got = [[], []]
+    errors = []
+    start = threading.Barrier(2)
+
+    def work(i):
+        try:
+            stream = torch.cuda.Stream() if i else torch.cuda.current_stream()
+            with torch.cuda.stream(stream):
+                start.wait()
+                for _ in range(3):
+                    got[i].append(B.bootstrap(cts[i]))
+            stream.synchronize()
+        except BaseException as e:      # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in (0, 1)]
+    torch.cuda.synchronize()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    assert not errors, errors
+    torch.cuda.synchronize()
+    for i in (0, 1):
+        assert len(got[i]) == 3
+        for g in got[i]:
+            _same_ct(g, want[i])
+    assert all(len(c.programs) == 1 for c in boot._staged_jit)
+
+
+def test_rebind_captures_a_graph_of_its_own(cuda):
+    """Two matmuls of one structure (different weights) plus a constant:
+    a rebound call, with the base's constant or another, captures a graph
+    of its own over its own masks; calls in turn equal the eager runs."""
+    from fhe_gpt2_tpu_torch.nn.backend import CkksBackend, RecordingBackend, \
+        jit_sealed, rebind_sealed
+    from fhe_gpt2_tpu_torch.nn.formats import TightLayout, matmul_spec
+    from fhe_gpt2_tpu_torch.nn.linear import apply_lt
+    ctx = _cached_ctx(cuda, False, 12)
+    slots = ctx.params.slots
+    rng = np.random.default_rng(4)
+    lay = TightLayout(8, 12, slots)
+    plans = [matmul_spec(rng.standard_normal((12, 12)) * 0.3, lay)
+             .bsgs_plan() for _ in range(2)]
+    xs_p = list(lay.pack(rng.standard_normal((8, 12)) * 0.5))
+    rec = RecordingBackend(slots)
+    for p in plans:
+        apply_lt(rec, p, xs_p)
+    kg = KeyGenerator(ctx, seed=5)
+    ev = Evaluator(ctx, relin_key=kg.relin_key(),
+                   galois_keys=kg.galois_keys(rec.key_steps()))
+    B = CkksBackend(ctx=ctx, ev=ev, enc=Encryptor(ctx, secret=kg.secret,
+                                                  seed=6),
+                    default_level=ctx.L)
+    xs = [B.from_slots(v) for v in xs_p]
+
+    def fn(plan, c):
+        return lambda vs: [B.add_const(o, c) for o in apply_lt(B, plan, vs)]
+
+    base = jit_sealed(B, fn(plans[0], 0.25), xs, seq_keys=True)
+    same = rebind_sealed(base, fn(plans[1], 0.25), xs)
+    other = rebind_sealed(base, fn(plans[1], 0.5), xs)
+    progs = [p for c in (base, same, other) for p in c.programs.values()]
+    assert len(progs) == 3
+    assert len({id(p.graph.graph) for p in progs}) == 3
+    wants = [fn(plans[0], 0.25)(xs), fn(plans[1], 0.25)(xs),
+             fn(plans[1], 0.5)(xs)]
+    for _ in range(2):
+        for c, want in zip((base, same, other), wants):
+            [got] = c(list(xs))
+            _same_ct(got, want[0])
+
+
+def test_host_copy_inside_a_capture_raises(cuda):
+    """A function that copies from the host runs in the warm pass, and its
+    capture raises: nothing falls back to eager. The card goes on working
+    after."""
+    from fhe_gpt2_tpu_torch.core.evaluator import Ciphertext
+    from fhe_gpt2_tpu_torch.nn.backend import jit_sealed
+    B, unit, fresh = _sealed_unit(cuda)
+    x = fresh(1)
+
+    def h2d(a):
+        one = torch.ones(1, dtype=a.data.dtype).to(a.data.device)
+        return Ciphertext(a.data + one, a.scale, a.level)
+
+    def d2h(a):
+        a.data.cpu()
+        return a
+
+    for fn in (h2d, d2h):
+        with pytest.raises(RuntimeError):
+            jit_sealed(B, fn, x)
+    torch.cuda.synchronize()
+    y = fresh(2)
+    call = jit_sealed(B, unit, x, x)
+    _same_ct(call(x, y), unit(x, y))
+
+
+# ---------------------------------------------------------------------------
 # The serving slice: the wire format onto the card, the native encoder on the
 # card's host, and the service's handlers on the card
 # ---------------------------------------------------------------------------

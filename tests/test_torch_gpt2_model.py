@@ -22,7 +22,7 @@ from fhe_gpt2_tpu_torch.nn import model as M
 from fhe_gpt2_tpu_torch.nn.backend import PlainBackend
 
 from torch_gpt2_common import JSH, SH, same_array, same_block_plans, \
-    same_ln_plans
+    same_ln_plans, same_values
 
 LAYERS, VOCAB = 2, 97
 
@@ -118,13 +118,20 @@ def test_train_consmax_equals_reference(hf):
         same_block_plans(bp, jbp)
 
 
-def test_forward_refuses_jit_and_boot_need(hf):
-    _, (plans, _) = _both_plans(hf[1])
+def test_forward_jit_and_boot_need_equal_reference(hf):
+    """The segment driver (jit=True; with boot_need, a maybe_bootstrap
+    before each segment) on the plain simulator, where a refresh is the
+    identity and a segment runs as it is: the JAX package's eager forward,
+    value for value, and the port's own eager forward."""
+    _, (plans, jplans) = _both_plans(hf[1])
     xs = list(SH.act.pack(_emb(hf[1])))
-    with pytest.raises(ValueError, match="jit"):
-        M.forward(PlainBackend(SH.slots), xs, plans, jit=True)
-    with pytest.raises(ValueError, match="boot_need"):
-        M.forward(PlainBackend(SH.slots), xs, plans, boot_need=1)
+    jout = jM.forward(JPlainBackend(JSH.slots), list(xs), jplans)
+    out = M.forward(PlainBackend(SH.slots), list(xs), plans)
+    same_values(out, jout, "eager")
+    for need in (0, 1):
+        got = M.forward(PlainBackend(SH.slots), list(xs), plans, jit=True,
+                        boot_need=need)
+        same_values(got, jout, f"jit, boot_need={need}")
 
 
 def _hf_model(weights):

@@ -72,9 +72,9 @@ def test_synthetic_weights_need_no_transformers():
 
 
 def test_driver_flags():
-    """The JAX driver's flags, without --jit, with --boot-need refused above
-    0, and with --log-scale (the JAX driver's 50 by default), --weights
-    (hf by default) and --newton-inits (mean by default)."""
+    """The JAX driver's flags, --jit and --boot-need among them, and
+    --log-scale (the JAX driver's 50 by default), --weights (hf by
+    default) and --newton-inits (mean by default)."""
     import chip_smoke
 
     a = run.parse_args(chip_smoke.GPT2_ARGS + ["--cpu"])
@@ -87,7 +87,9 @@ def test_driver_flags():
     assert (d.log_scale, d.weights, d.newton_inits, d.ln_iters) == \
         (50, "hf", "mean", 12)
     assert run.device_of(a) == "cpu"
-    for bad in (["--jit"], ["--boot-need", "1"], ["--weights", "gpt2"]):
+    j = run.parse_args(["--jit", "--boot-need", "3"])
+    assert (j.jit, j.boot_need, a.jit) == (True, 3, False)
+    for bad in (["--boot-need", "x"], ["--weights", "gpt2"]):
         with pytest.raises(SystemExit):
             run.parse_args(bad)
 

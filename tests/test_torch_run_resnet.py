@@ -92,7 +92,7 @@ def test_plain_driver_equals_reference(monkeypatch, capsys):
 
 
 def test_driver_flags():
-    """The JAX driver's flags, without --jit and with --log-scale (the JAX
+    """The JAX driver's flags, --jit among them, and --log-scale (the JAX
     driver's 50 by default); --cpu asks for the CPU."""
     import chip_smoke
 
@@ -104,8 +104,9 @@ def test_driver_flags():
     assert run.device_of(a) == "cpu"
     assert run.parse_args(["--composite"]).nsp == 3
     assert run.parse_args(["--real-boot"]).levels == 30
+    assert run.parse_args(["--jit"]).jit and not a.jit
     with pytest.raises(SystemExit):
-        run.parse_args(["--jit"])
+        run.parse_args(["--jit", "1"])
 
 
 def test_driver_without_card_raises(monkeypatch):
