@@ -1,0 +1,8 @@
+"""idle.resnet: The share of the traced window (a ResNet block requests) in
+which nothing ran on the card."""
+
+from fhe_bench import readers
+
+
+def read(run):
+    return readers.idle(run)
