@@ -2621,6 +2621,7 @@ def sealed_drivers_phase(torch) -> dict:
     from fhe_gpt2_tpu_torch.nn import kernels as K
     from fhe_gpt2_tpu_torch.nn import model as M
     from fhe_gpt2_tpu_torch.nn.backend import PlainBackend, graph_pool_bytes
+    from fhe_gpt2_tpu_torch.utils import telemetry
 
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
@@ -2654,7 +2655,10 @@ def sealed_drivers_phase(torch) -> dict:
         torch.cuda.synchronize()
         _cuda.reset_launches()
         t0 = time.perf_counter()
-        [got] = run_resnet._run_encrypted(a, rp, [img])
+        # The recorder's bootstrap spans give the session's boot_times, as
+        # in the run_resnet CLI.
+        with telemetry.enable(only=("bootstrap",)):
+            [got] = run_resnet._run_encrypted(a, rp, [img])
         torch.cuda.synchronize()
         image_s = time.perf_counter() - t0
         ses = a._session
@@ -2670,7 +2674,7 @@ def sealed_drivers_phase(torch) -> dict:
                      "capture_s": sum(p.capture_s for p in progs + boots),
                      "launches": dict(_cuda.LAUNCHES), "err": err,
                      "margin": float(top2[1] - top2[0])})
-        ses.boot_times.clear()
+        ses.clear_boot_times()
         check(np.isfinite(got).all() and err < ERR_BOUND_RESNET,
               f"resnet --jit image {i}: |got - plain| {err}")
         check(np.argmax(got) == np.argmax(plain),

@@ -40,6 +40,7 @@ from ..core import ntt as nttmod
 from ..core.evaluator import Ciphertext, stack_cts, unstack_cts
 from ..core.modmath import reduce_mod, sub_mod, word_tensor
 from ..nn.linear import LTSpec, apply_lt
+from ..utils import telemetry
 from . import fft
 
 CACHE_DIR = os.path.join(os.path.dirname(os.path.dirname(
@@ -261,6 +262,8 @@ class Bootstrapper:
                              for i in range(int(math.log2(rep)))]
         self._i_vec = np.full(self.n, 1j)
         self._neg_i_vec = np.full(self.n, -1j)
+        # The span of each stage (utils/telemetry.py): boot.<stage name>.
+        self.stage_spans = tuple(f"boot.{name}" for name, _ in self.stages())
 
     def on(self, backend) -> "Bootstrapper":
         """This bootstrapper on another backend over the same chain (a mesh
@@ -350,12 +353,16 @@ class Bootstrapper:
 
     def bootstrap(self, ct: Ciphertext, **kw) -> Ciphertext:
         """Refresh ct. Keywords are accepted and ignored, as in the JAX
-        package."""
+        package. Each stage is a ``boot.<stage>`` span, with device events
+        on the card."""
         assert ct.k == 2
         delta = ct.scale
+        cuda = ct.data.is_cuda
         xs = [self._normalize_entry(ct)]
-        for _, fn in self.stages():
-            xs = fn(xs)
+        for i, ((_, fn), name) in enumerate(zip(self.stages(),
+                                                self.stage_spans)):
+            with telemetry.span(name, index=i, events=cuda):
+                xs = fn(xs)
         [out] = xs
         # The values are m at the context scale (amplitude folded into the
         # arcsin stage); relabel to the incoming scale exactly.
@@ -368,27 +375,33 @@ class Bootstrapper:
         The entry normalisation runs eagerly, outside the programs, so
         every stage sees one signature per run. Threads take turns over the
         whole pipeline (the backend's ``_seal_lock``). A mesh position's
-        bootstrapper (``on``) runs eagerly and refuses this."""
+        bootstrapper (``on``) runs eagerly and refuses this. Each stage
+        call is a ``boot.<stage>`` span, with device events on the card:
+        a replay's stage times, and its op counts from the warm pass."""
         assert ct.k == 2
         if self.eager_only:
             raise ValueError("bootstrap_jitted: a mesh position's "
                              "bootstrapper (Bootstrapper.on) runs eagerly; "
                              "call bootstrap")
         delta = ct.scale
+        cuda = ct.data.is_cuda
         xs = [self._normalize_entry(ct)]
         with self.B._seal_lock:
             jfs = getattr(self, "_staged_jit", None)
             if jfs is None:
                 from ..nn.backend import jit_sealed
                 jfs = []
-                for _, fn in self.stages():
-                    jf = jit_sealed(self.B, fn, xs)
-                    jfs.append(jf)
-                    xs = jf(xs)
+                for i, ((_, fn), name) in enumerate(zip(self.stages(),
+                                                        self.stage_spans)):
+                    with telemetry.span(name, index=i, events=cuda):
+                        jf = jit_sealed(self.B, fn, xs)
+                        jfs.append(jf)
+                        xs = jf(xs)
                 self._staged_jit = jfs
             else:
-                for jf in jfs:
-                    xs = jf(xs)
+                for i, (jf, name) in enumerate(zip(jfs, self.stage_spans)):
+                    with telemetry.span(name, index=i, events=cuda):
+                        xs = jf(xs)
         return replace(xs[0], scale=delta)
 
     def _mul_i(self, ct):

@@ -16,7 +16,9 @@ runs eagerly, or, with jit=True, through the segment driver
 (``_forward_jit``), whose segments are sealed programs (CUDA graphs on the
 card, ``nn/backend.py`` ``jit_sealed``). ``synthetic_weights`` makes
 reference-format weights from a numpy generator, for runs without the
-pretrained files.
+pretrained files. Each eager segment is a ``segment.stem``/``.block``/
+``.tail`` span of ``utils/telemetry.py`` (a sealed one is
+``segment_runner``'s ``segment.<name>``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 
 from ..nn import kernels as K
 from ..nn.linear import apply_lt
+from ..utils import telemetry
 from .conv import PlanarLayout, avgpool_spec, bias_vector, conv2d_spec, \
     fc_spec, fold_bn
 
@@ -212,13 +215,18 @@ def forward_segments(B, rp: ResNetPlans, boot_between: bool = True) -> list:
             return vs
         return [B.maybe_bootstrap(v, need) for v in vs]
 
+    @telemetry.traced("segment.stem")
     def stem(xs):
         plan, bias, _ = rp.stem
         xs = apply_lt(B, plan, xs)
         xs = [B.add_plain(x, bias[i]) for i, x in enumerate(xs)]
         return _relu(B, pre_relu(xs), rp)
 
-    def block(xs, blk):
+    def block(xs, blk, bi):
+        with telemetry.span("segment.block", index=bi):
+            return _block(xs, blk)
+
+    def _block(xs, blk):
         h = apply_lt(B, blk["plan1"], xs)
         h = [B.add_plain(v, blk["bias1"][i]) for i, v in enumerate(h)]
         h = _relu(B, pre_relu(h), rp)
@@ -234,13 +242,15 @@ def forward_segments(B, rp: ResNetPlans, boot_between: bool = True) -> list:
         h = [a if b is None else B.add(a, b) for a, b in zip(h, res)]
         return _relu(B, pre_relu(h), rp)
 
+    @telemetry.traced("segment.tail")
     def tail(xs):
         xs = apply_lt(B, rp.pool, xs)
         xs = apply_lt(B, rp.fc, xs)
         return [B.add_plain(xs[0], _fc_bias_vec(rp))]
 
     segs = [stem]
-    segs += [lambda xs, blk=blk: block(xs, blk) for blk in rp.blocks]
+    segs += [lambda xs, blk=blk, bi=bi: block(xs, blk, bi)
+             for bi, blk in enumerate(rp.blocks)]
     segs.append(tail)
     return segs
 

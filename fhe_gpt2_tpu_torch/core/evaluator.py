@@ -20,6 +20,12 @@ one mod-down per accumulator (``mod_down_ext``).
 Encryption samples on the host, as the JAX package does, so the same seeds
 give the same ciphertexts; ``encrypt_symmetric_seeded`` expands its c1 from a
 32-byte SHAKE-256 seed (``expand_uniform``).
+
+While the recorder of ``utils/telemetry.py`` is on, each public op is an
+``op.<name>`` span and an ``op.<name>@<level>`` count at its outermost call
+on a thread, every key read (``_switch_key``, ``_hoisted_mac``) a ``ks``
+count and every shared decomposition a ``ks.decompose`` count; off, each op
+costs one flag check.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 
 from . import embedding, ntt as nttmod, seal, tks
+from ..utils import telemetry
 from .context import CkksContext
 from .keys import GaloisKeys, KSwitchKey, PublicKey, SecretKey, make_rng, \
     sample_gaussian, sample_ternary, sample_uniform_rns, _to_rns
@@ -156,17 +163,20 @@ class Evaluator:
     def _t(self, level: int):
         return self.ctx.tables(level)
 
+    @telemetry.op("add")
     def add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         assert a.level == b.level and _scales_close(a.scale, b.scale), (
             f"add: level/scale mismatch {a.level}/{a.scale} vs {b.level}/{b.scale}")
         return Ciphertext(add_mod(a.data, b.data, self._t(a.level).q), a.scale,
                           a.level)
 
+    @telemetry.op("sub")
     def sub(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         assert a.level == b.level and _scales_close(a.scale, b.scale)
         return Ciphertext(sub_mod(a.data, b.data, self._t(a.level).q), a.scale,
                           a.level)
 
+    @telemetry.op("negate")
     def negate(self, a: Ciphertext) -> Ciphertext:
         return Ciphertext(neg_mod(a.data, self._t(a.level).q), a.scale,
                           a.level)
@@ -174,12 +184,14 @@ class Evaluator:
     def _with_c0(self, a: Ciphertext, c0: torch.Tensor) -> torch.Tensor:
         return torch.cat([c0[None], a.data[1:]])
 
+    @telemetry.op("add_plain")
     def add_plain(self, a: Ciphertext, p: Plaintext) -> Ciphertext:
         assert a.level == p.level and _scales_close(a.scale, p.scale)
         q = self._t(a.level).q
         return Ciphertext(self._with_c0(a, add_mod(a.data[0], p.data, q)),
                           a.scale, a.level)
 
+    @telemetry.op("sub_plain")
     def sub_plain(self, a: Ciphertext, p: Plaintext) -> Ciphertext:
         assert a.level == p.level and _scales_close(a.scale, p.scale)
         q = self._t(a.level).q
@@ -196,6 +208,7 @@ class Evaluator:
                 m, self.ctx.data_limbs(level)), self.ctx.device,
                 word=self.ctx.word))
 
+    @telemetry.op("add_const")
     def add_const(self, a: Ciphertext, value: float) -> Ciphertext:
         """a + value broadcast over slots (no level/scale cost)."""
         res = self._const(int(round(value * a.scale)), a.level)
@@ -203,12 +216,14 @@ class Evaluator:
         return Ciphertext(self._with_c0(a, add_mod(a.data[0], res, q)),
                           a.scale, a.level)
 
+    @telemetry.op("mul_const_int")
     def mul_const_int(self, a: Ciphertext, m: int) -> Ciphertext:
         """Multiply by an exact integer (scale unchanged)."""
         t = self._t(a.level)
         return Ciphertext(mul_mod(a.data, self._const(m, a.level), t.q,
                                   t.ratio0, t.ratio1), a.scale, a.level)
 
+    @telemetry.op("mul_const")
     def mul_const(self, a: Ciphertext, value: float,
                   const_scale: Optional[float] = None) -> Ciphertext:
         """Multiply all slots by a real constant encoded at const_scale."""
@@ -216,6 +231,7 @@ class Evaluator:
         out = self.mul_const_int(a, int(round(value * cs)))
         return Ciphertext(out.data, a.scale * cs, a.level)
 
+    @telemetry.op("mul_plain")
     def mul_plain(self, a: Ciphertext, p: Plaintext) -> Ciphertext:
         assert a.level == p.level
         t = self._t(a.level)
@@ -229,6 +245,7 @@ class Evaluator:
 
     # -- multiply / relinearize ---------------------------------------------
 
+    @telemetry.op("multiply")
     def multiply(self, a: Ciphertext, b: Ciphertext,
                  relin: bool = True) -> Ciphertext:
         assert a.level == b.level and a.k == 2 and b.k == 2
@@ -247,9 +264,11 @@ class Evaluator:
             out = self.relinearize(out)
         return out
 
+    @telemetry.op("square")
     def square(self, a: Ciphertext, relin: bool = True) -> Ciphertext:
         return self.multiply(a, a, relin=relin)
 
+    @telemetry.op("relinearize")
     def relinearize(self, a: Ciphertext) -> Ciphertext:
         assert a.k == 3 and self.relin_key is not None
         ks = self._switch_key(a.data[2], a.level, self.relin_key)
@@ -260,6 +279,7 @@ class Evaluator:
 
     # -- rescale / mod switch -----------------------------------------------
 
+    @telemetry.op("rescale")
     def rescale(self, a: Ciphertext) -> Ciphertext:
         """Divide by the trailing rescale unit: one prime q_{l-1} (exact
         drop), or the trailing PAIR under composite scaling (one-shot HPS
@@ -281,6 +301,7 @@ class Evaluator:
         return Ciphertext(data, a.scale / float(
             np.prod([ctx.moduli[i] for i in range(l - g, l)])), l - g)
 
+    @telemetry.op("mod_switch_drop")
     def mod_switch_drop(self, a: Ciphertext, levels: int = 1) -> Ciphertext:
         """Drop limbs without scaling (mod_switch_to_next)."""
         assert a.level - levels >= 1
@@ -308,6 +329,7 @@ class Evaluator:
         Returns [2, ..., l, N], already mod-downed past the special primes.
         The base conversion reads every limb below the level
         (``gather_limbs``); the key rows are the context's."""
+        telemetry.count("ks")
         ctx = self.ctx
         ft = ctx.fused_ks_tables(level)
         key_limbs = ctx.key_limbs(level)
@@ -317,6 +339,7 @@ class Evaluator:
             ctx.tables(key_limbs), ft)
         return self._mod_down_special(acc, level)
 
+    @telemetry.op("apply_galois")
     def apply_galois(self, a: Ciphertext, galois_elt: int) -> Ciphertext:
         """Galois automorphism + key switch (rotate/conjugate core)."""
         assert a.k == 2 and self.galois_keys is not None
@@ -347,6 +370,7 @@ class Evaluator:
             rem -= nxt
         return hops
 
+    @telemetry.op("rotate")
     def rotate(self, a: Ciphertext, steps: int) -> Ciphertext:
         """Rotate slots left by `steps`, composing key switches when the
         exact key is absent."""
@@ -360,6 +384,7 @@ class Evaluator:
         """(key tables, tpoly [..., D, l+k, N], D) of a's c1: the digit
         decomposition the hoisted rotations share, on the key-switch
         kernel's cached digit structure."""
+        telemetry.count("ks.decompose")
         ctx, l = self.ctx, a.level
         ft = ctx.fused_ks_tables(l)
         kt = ctx.tables(ctx.key_limbs(l))
@@ -370,10 +395,12 @@ class Evaluator:
     def _hoisted_mac(self, tpoly, kt, elt: int, level: int, D: int):
         """Permute the shared digits by the automorphism and multiply-
         accumulate them with its key: [2, ..., l+k, N] before mod-down."""
+        telemetry.count("ks")
         tp = tpoly.index_select(-1, self.ctx.galois_perm(elt))
         key = self.galois_keys[elt].sliced(self.ctx.key_limbs(level), D)
         return tks._ks_mac_core(tp, key, kt)
 
+    @telemetry.op("rotate_hoisted")
     def rotate_hoisted(self, a: Ciphertext, steps: list[int]) -> list[Ciphertext]:
         """Many rotations of one ciphertext sharing a single digit
         decomposition: the automorphism commutes with the per-coefficient
@@ -411,6 +438,7 @@ class Evaluator:
                                              t), scale=scale, level=level)
         return self._sealed_encode("ext", build, scale, level)
 
+    @telemetry.op("hoisted_rotations_ext")
     def hoisted_rotations_ext(self, a: Ciphertext,
                               steps: list[int]) -> list[torch.Tensor]:
         """Double hoisting (Bossuat et al., EUROCRYPT'21): rotations of one
@@ -454,6 +482,7 @@ class Evaluator:
             out.append(torch.stack([e0, acc[1]]))
         return out
 
+    @telemetry.op("mod_down_ext", level_arg=2)
     def mod_down_ext(self, data: torch.Tensor, level: int,
                      scale: float) -> Ciphertext:
         """Divide an extended-basis accumulator [2, ..., l+k, N] by P (exact
@@ -461,11 +490,13 @@ class Evaluator:
         return Ciphertext(self._mod_down_special(data.contiguous(), level),
                           scale, level)
 
+    @telemetry.op("conjugate")
     def conjugate(self, a: Ciphertext) -> Ciphertext:
         return self.apply_galois(a, self.ctx.galois_elt_conjugate)
 
     # -- reduced-error ops (Kim et al. CT-RSA'22) -----------------------------
 
+    @telemetry.op("set_scale_exact")
     def set_scale_exact(self, a: Ciphertext, target: float) -> Ciphertext:
         """Move a ciphertext to EXACTLY `target`: multiply by 1.0 encoded at
         the corrective scale target·q_last/scale, then rescale (one level)."""
@@ -491,11 +522,13 @@ class Evaluator:
         b = self.set_scale_exact(b, a.scale)
         return self.mod_switch_to(a, b.level), b
 
+    @telemetry.op("add_reduced_error")
     def add_reduced_error(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         l = min(a.level, b.level)
         a, b = self.mod_switch_to(a, l), self.mod_switch_to(b, l)
         return self.add(*self._match_scale_for_add(a, b))
 
+    @telemetry.op("sub_reduced_error")
     def sub_reduced_error(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         l = min(a.level, b.level)
         a, b = self.mod_switch_to(a, l), self.mod_switch_to(b, l)
@@ -505,12 +538,14 @@ class Evaluator:
         out = self.sub(*self._match_scale_for_add(a, b))
         return self.negate(out) if neg else out
 
+    @telemetry.op("multiply_reduced_error")
     def multiply_reduced_error(self, a: Ciphertext, b: Ciphertext,
                                relin: bool = True) -> Ciphertext:
         l = min(a.level, b.level)
         return self.multiply(self.mod_switch_to(a, l),
                              self.mod_switch_to(b, l), relin=relin)
 
+    @telemetry.op("rescale_to_scale")
     def rescale_to_scale(self, a: Ciphertext, target: float) -> Ciphertext:
         """Rescale once and relabel to `target` (the q/scale drift becomes
         approximation error, the reduced-error convention)."""
@@ -553,20 +588,27 @@ class Encryptor:
     def encrypt_symmetric(self, pt: Plaintext, a=None) -> Ciphertext:
         """(b, a) with b = -(a·s) + e + m. ``a`` (residues [l, N], NTT
         form, numpy or a tensor in the chain's word) replaces the uniform
-        draw."""
+        draw. Recorded (``utils/telemetry.py``) as ``encrypt.sample`` spans
+        (the host draws) and ``encrypt.device`` spans (the copies and the
+        device part, the card synchronized at the end of the last)."""
         ctx, l = self.ctx, pt.level
         t = ctx.tables(l)
         mods = [ctx.all_moduli[i] for i in range(l)]
         if a is None:
-            a = self._rns(sample_uniform_rns(self.rng, ctx.n, mods))
-        elif not isinstance(a, torch.Tensor):
-            a = self._rns(a)
-        e = self._rns(_to_rns(
-            sample_gaussian(self.rng, ctx.n, ctx.params.error_std), mods))
-        s = self.secret.ntt[:l]
-        b = add_mod(neg_mod(mul_mod(a, s, t.q, t.ratio0, t.ratio1), t.q),
-                    nttmod.ntt(e, t), t.q)
-        b = add_mod(b, pt.data, t.q)
+            with telemetry.span("encrypt.sample"):
+                a = sample_uniform_rns(self.rng, ctx.n, mods)
+        if not isinstance(a, torch.Tensor):
+            with telemetry.span("encrypt.device"):
+                a = self._rns(a)
+        with telemetry.span("encrypt.sample"):
+            e = _to_rns(sample_gaussian(self.rng, ctx.n, ctx.params.error_std),
+                        mods)
+        with telemetry.span("encrypt.device", sync=True):
+            e = self._rns(e)
+            s = self.secret.ntt[:l]
+            b = add_mod(neg_mod(mul_mod(a, s, t.q, t.ratio0, t.ratio1), t.q),
+                        nttmod.ntt(e, t), t.q)
+            b = add_mod(b, pt.data, t.q)
         return Ciphertext(torch.stack([b, a]), pt.scale)
 
     def encrypt_symmetric_seeded(self, pt: Plaintext):
@@ -637,19 +679,36 @@ class Decryptor:
         return to_numpy_word(nttmod.intt(acc.contiguous(), t))
 
     def decrypt(self, ct: Ciphertext, num_slots=None) -> np.ndarray:
-        res = self.decrypt_to_rns(ct)
-        return embedding.decode(res, ct.scale, self.ctx,
-                                tuple(range(ct.level)), num_slots)
+        """Slot values of ct. Recorded as a ``decrypt.device`` span (the
+        device decrypt and its copy to the host) and a ``decrypt.decode``
+        span (the host CRT decode)."""
+        with telemetry.span("decrypt.device"):
+            res = self.decrypt_to_rns(ct)
+        with telemetry.span("decrypt.decode"):
+            return embedding.decode(res, ct.scale, self.ctx,
+                                    tuple(range(ct.level)), num_slots)
 
 
 def fake_bootstrap(ct: Ciphertext, dec: Decryptor, enc: Encryptor,
                    ev: Evaluator, target_level: int,
                    scale: Optional[float] = None) -> Ciphertext:
     """Decrypt/re-encrypt level reset: bring-up scaffolding only, which
-    ``boot/bootstrap.py`` replaces. Batched ciphertexts refresh one by one."""
+    ``boot/bootstrap.py`` replaces. Batched ciphertexts refresh one by one.
+
+    Recorded (``utils/telemetry.py``) as a ``refresh`` span, the card
+    synchronized at its end, over the ``decrypt.*`` and ``encrypt.*`` spans
+    of ``Decryptor.decrypt`` and ``Encryptor.encrypt_symmetric`` and a
+    ``refresh.encode`` span of ``make_plain`` per ciphertext."""
     scale = scale or ev.ctx.params.scale
+    with telemetry.span("refresh", level=ct.level, sync=True):
+        return _refresh(ct, dec, enc, ev, target_level, scale)
+
+
+def _refresh(ct, dec, enc, ev, target_level, scale) -> Ciphertext:
     if ct.batch:
-        return stack_cts([fake_bootstrap(c, dec, enc, ev, target_level, scale)
+        return stack_cts([_refresh(c, dec, enc, ev, target_level, scale)
                           for c in unstack_cts(ct)])
-    pt = ev.make_plain(dec.decrypt(ct), scale, target_level)
+    values = dec.decrypt(ct)
+    with telemetry.span("refresh.encode"):
+        pt = ev.make_plain(values, scale, target_level)
     return enc.encrypt_symmetric(pt)

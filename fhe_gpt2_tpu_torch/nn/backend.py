@@ -45,6 +45,7 @@ from ..core.evaluator import (
     Ciphertext, Decryptor, Encryptor, Evaluator, Plaintext, _scales_close,
     fake_bootstrap, stack_cts, unstack_cts)
 from ..core.modmath import add_mod, mod_sum, mul_mod
+from ..utils import telemetry
 
 # Terms per int64 product in the masked sums: bounds their transients to
 # MAC_CHUNK widened copies of one operand.
@@ -257,6 +258,7 @@ class CkksBackend:
             del self._keepalive[old]
             gone = self._plain_cache.pop(old)
             self._cache_bytes -= gone.data.numel() * gone.data.element_size()
+            telemetry.count("mask.evictions")
         return pt
 
     def _key(self, kind: str, v, level: int, scale: float) -> tuple:
@@ -275,12 +277,16 @@ class CkksBackend:
         """The mask v at (level, scale), encoded by encode() on a miss.
         Inside a sealed call the call's own masks answer first, and a miss
         raises once the call is sealed; its warm pass records every mask
-        it reads (an id()-keyed one with its source array pinned)."""
+        it reads (an id()-keyed one with its source array pinned).
+        Counted as ``mask.lookups`` and ``mask.hits``; an encoding is an
+        ``encode`` span."""
+        telemetry.count("mask.lookups")
         key = self._key(kind, v, level, scale)
         s = seal.current()
         if s is not None:
             out = s.plains.get(key)
             if out is not None:
+                telemetry.count("mask.hits")
                 return out
             s.miss(f"mask {key}")
         # Encoded outside the seal: a mask is held here, not among the
@@ -288,14 +294,16 @@ class CkksBackend:
         # must run alike in the warm pass and in every later run.
         if s is not None and s.seq is not None:
             # Sequential keys: the call's own cache, and no other.
-            with seal.using(None):
+            with seal.using(None), telemetry.span("encode", level=level):
                 out = s.plains[key] = encode()
             return out
         out = self._plain_cache.get(key)
         if out is None:
-            with seal.using(None):
+            with seal.using(None), telemetry.span("encode", level=level):
                 out = encode()
             self._store(key, v, out)
+        else:
+            telemetry.count("mask.hits")
         if s is not None:
             s.plains[key] = out
             s.hold(v)
@@ -561,12 +569,17 @@ class CkksBackend:
     def bootstrap(self, a, **kw):
         """Refresh a: the Bootstrapper's, or else the fake decrypt/
         re-encrypt. Keywords are accepted and ignored, as in the JAX
-        package."""
+        package. A real bootstrap is a ``bootstrap`` span (with device
+        events on the card), which synchronizes the card at its end
+        outside a sealed call, where nothing may synchronize."""
         if self.boot is not None:
-            # Entry normalisation happens inside the Bootstrapper.
-            if self._boot_sealed(a):
-                return self.boot.bootstrap_jitted(a)
-            return self.boot.bootstrap(a, **kw)
+            with telemetry.span("bootstrap", level=a.level,
+                                events=a.data.is_cuda,
+                                sync=seal.current() is None):
+                # Entry normalisation happens inside the Bootstrapper.
+                if self._boot_sealed(a):
+                    return self.boot.bootstrap_jitted(a)
+                return self.boot.bootstrap(a, **kw)
         # Bring-up path: decrypt/re-encrypt.
         assert self.dec is not None and self.enc is not None
         return fake_bootstrap(a, self.dec, self.enc, self.ev,
@@ -660,6 +673,9 @@ class _Program:
         self.graph: _Graph | None = None
         self.warm_s = 0.0
         self.capture_s = 0.0
+        # The op and key-switch counts of the warm pass, which each replay
+        # adds to the recorder (utils/telemetry.py).
+        self.counts: dict = {}
 
 
 class SealedCall:
@@ -693,8 +709,11 @@ class SealedCall:
         in_def, leaves, sig = _signature(args)
         s = seal.Seal()
         t0 = time.perf_counter()
-        out = self._run(s, args, sealed=False)
+        with telemetry.collect() as counts:
+            out = self._run(s, args, sealed=False)
         prog = _Program(s, in_def, _flatten(out, []))
+        prog.counts = {k: n for k, n in counts.items()
+                       if k.startswith(telemetry.REPLAYED)}
         cuda = bool(leaves) and leaves[0].is_cuda
         if cuda:
             torch.cuda.synchronize(leaves[0].device)
@@ -725,7 +744,7 @@ class SealedCall:
         # invalidate it.
         collecting = gc.isenabled()
         try:
-            with torch.cuda.device(dev):
+            with torch.cuda.device(dev), telemetry.muted():
                 with torch.cuda.graph(g, pool=B._graph_pool,
                                       capture_error_mode="thread_local"):
                     gc.disable()
@@ -766,6 +785,7 @@ class SealedCall:
             for buf, t in zip(gr.static_in, leaves):
                 buf.copy_(t)
             gr.graph.replay()
+            telemetry.add(prog.counts)
             outs = [t.clone() for t in gr.static_out]
             B._replayed = torch.cuda.Event()
             B._replayed.record(stream)
@@ -827,24 +847,32 @@ def segment_runner(B, kind: str, model):
     (name, signature) holds the first, which later parts rebind to
     (``rebind_sealed``). Both live on the backend, by model, so that a
     second forward replays what the first captured. A backend with no
-    device program (the plain simulator) runs each fn as it is."""
+    device program (the plain simulator) runs each fn as it is. Each call
+    is a ``segment.<name>`` span (``utils/telemetry.py``), its index the
+    part."""
     if not isinstance(B, CkksBackend):
         return lambda name, fn, vs, part=None: fn(vs)
     _, jcache, struct_cache = B._segments.setdefault(
         (kind, id(model)), (model, {}, {}))
+    spans: dict = {}                # segment name -> its span's name
 
     def run(name, fn, vs, part=None):
         sig = (tuple(v.level for v in vs), tuple(v.scale for v in vs),
                tuple(v.data.shape for v in vs))
         key = (name, part, sig)
-        jf = jcache.get(key)
-        if jf is None:
-            base = struct_cache.get((name, sig))
-            if base is None:
-                jf = jit_sealed(B, fn, vs, seq_keys=True)
-                struct_cache[(name, sig)] = jf
-            else:
-                jf = rebind_sealed(base, fn, vs)
-            jcache[key] = jf
-        return jf(vs)
+        label = spans.get(name)
+        if label is None:
+            label = spans[name] = "segment." + (
+                name if isinstance(name, str) else name[0])
+        with telemetry.span(label, index=part):
+            jf = jcache.get(key)
+            if jf is None:
+                base = struct_cache.get((name, sig))
+                if base is None:
+                    jf = jit_sealed(B, fn, vs, seq_keys=True)
+                    struct_cache[(name, sig)] = jf
+                else:
+                    jf = rebind_sealed(base, fn, vs)
+                jcache[key] = jf
+            return jf(vs)
     return run

@@ -10,8 +10,10 @@ reference's Horner/power-basis loops, keeping multiplicative depth
 logarithmic in the degree.
 
 The port's copy of ``fhe_gpt2_tpu/nn/kernels.py``: numpy over the backend
-protocol of ``nn/backend.py``, unchanged, so on the port's backends it issues
-the same ops in the same order as the JAX package does on its own.
+protocol of ``nn/backend.py``, unchanged but for the ``relu`` and
+``newton_rsqrt`` spans of ``utils/telemetry.py``, so on the port's backends
+it issues the same ops in the same order as the JAX package does on its
+own.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 
 from ..approx.chebeval import make_plan, eval_plan
 from ..approx.minimax import GeluApprox, SignComposite, gelu_approx
+from ..utils import telemetry
 
 
 # ---------------------------------------------------------------------------
@@ -95,6 +98,7 @@ def sign_depth(sp: SignPlans) -> int:
     return int(d)
 
 
+@telemetry.traced("relu")
 def relu(B, x, sp: SignPlans, bound: float = 1.0):
     """ReLU(x) for |x| ≤ bound: x·(1+sgn(x/bound))/2 (minimax_ReLU_seal)."""
     s = sign(B, B.mul_const(x, 1.0 / bound), sp)
@@ -224,6 +228,7 @@ def taylor_rsqrt_seed(B, x, a: float):
     return out
 
 
+@telemetry.traced("newton_rsqrt")
 def newton_rsqrt(B, x, init: float, iters: int = 13):
     """1/sqrt(x) by Newton y ← y(1.5 − 0.5·x·y²), Taylor-seeded at `init`
     (compute_inv_sqrt / newton_iteration)."""

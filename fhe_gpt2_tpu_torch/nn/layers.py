@@ -26,8 +26,9 @@ The causal mask, bias addition, and 1/√dh scaling are folded into
 host-precomputed plaintext vectors.
 
 The port's copy of ``fhe_gpt2_tpu/nn/layers.py``: numpy over the backend
-protocol of ``nn/backend.py``, unchanged, so on the port's backends it issues
-the same ops in the same order as the JAX package does on its own.
+protocol of ``nn/backend.py``, unchanged but for the ``layer_norm`` span of
+``utils/telemetry.py``, so on the port's backends it issues the same ops in
+the same order as the JAX package does on its own.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from . import kernels as K
 from .formats import StridedLayout, p2, prefold_layout, blocks_matmul_specs, \
     matmul_spec
 from .linear import apply_lt
+from ..utils import telemetry
 
 
 @dataclass(frozen=True)
@@ -247,6 +249,7 @@ def _apply_matmul(B, plans, xs, bias=None):
     return out
 
 
+@telemetry.traced("layer_norm")
 def layer_norm(B, xs, sh: GPT2Shapes, ln: LnPlans):
     """Per-row LayerNorm (layers.py:24-90 semantics, our folds).
 

@@ -1,7 +1,8 @@
 """General slot-linear transforms with BSGS rotation scheduling.
 
 The port's copy of ``fhe_gpt2_tpu/nn/linear.py`` (numpy and the backend
-protocol of ``nn/backend.py``), unchanged.
+protocol of ``nn/backend.py``), unchanged but for the ``apply_lt`` span of
+``utils/telemetry.py``.
 
 TPU-first replacement for the reference's rotation-profligate packed matmuls
 (MatrixMul.cpp row/col/attn-proj kernels do O(10^4..10^5) masked rotations per
@@ -26,6 +27,8 @@ import math
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from ..utils import telemetry
 
 
 @dataclass
@@ -133,6 +136,7 @@ def lt_from_triples(slots: int, n_src: int, n_dst: int,
 # Evaluation (backend-generic)
 # ---------------------------------------------------------------------------
 
+@telemetry.traced("apply_lt")
 def apply_lt(B, plan: BsgsPlan, xs, level_cost_note: str = ""):
     """Evaluate a planned LT. xs: list of backend values (len n_src).
 

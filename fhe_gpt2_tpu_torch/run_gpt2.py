@@ -22,7 +22,11 @@ in place of the mean (the default). --jit runs the segment driver (four
 sealed programs per block, CUDA graphs on the card, each layer with its
 own), and --boot-need N
 refreshes, outside the programs, each segment input with N logical levels
-or fewer left. One block at GPT-2 small's width on the
+or fewer left. --trace PATH turns the port's recorder
+(``utils/telemetry.py``) and ``torch.profiler`` on over the run and writes
+the spans, counters and device trace to PATH as one Chrome-trace JSON, with
+the device's idle seconds by the innermost span beside them. One block at
+GPT-2 small's width on the
 80-limb composite chain, with the decrypt/re-encrypt refresh, is
 
     python -m fhe_gpt2_tpu_torch.run_gpt2 --layers 1 --hidden 768 \\
@@ -104,6 +108,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the plain PyTorch versions of the "
                          "kernels); without it the driver needs a CUDA card")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write the port's spans and counters and a "
+                         "torch.profiler device trace of the run to PATH "
+                         "(Chrome-trace JSON, utils/telemetry.trace)")
     return ap.parse_args(argv)
 
 
@@ -184,7 +192,16 @@ def load_model(a) -> Model:
 def main(argv=None):
     a = parse_args(argv)
     device_of(a)
+    if not a.trace:
+        return _main(a)
+    from .utils import telemetry
+    with telemetry.trace(a.trace) as summary:
+        _main(a)
+    print(json.dumps({"trace": a.trace,
+                      "idle_by_span": summary["idle_by_span"][:10]}))
 
+
+def _main(a):
     from .nn import model as M
     from .nn.backend import PlainBackend
 

@@ -16,8 +16,15 @@ sealed program (a CUDA graph on the card, captured on the first image and
 replayed on the next ones, which reuse the first image's keys and
 backend), the bootstraps between segments through the staged sealed
 pipeline. --plain runs the slot-exact simulator (no crypto), the fast path
-for algorithm validation. The ResNet-20 bootstrapped run on the composite
-chain is
+for algorithm validation. An encrypted run records the port's bootstrap
+spans (``utils/telemetry.py``, ``enable(only=("bootstrap",))``: no other
+span, no counter, no CUDA event): the summary's ``boot_seconds_*`` are
+their host walls, each ended with the card synchronized. --trace PATH
+turns the whole recorder and ``torch.profiler`` on over the run instead
+and writes the spans and the device trace to PATH as one Chrome-trace JSON
+(``telemetry.trace``), with the device's idle seconds by the innermost span
+beside them. The ResNet-20
+bootstrapped run on the composite chain is
 
     python -m fhe_gpt2_tpu_torch.run_resnet --composite --log-scale 54 \\
         --real-boot --levels 39 --nsp 16 --digit-keys --boot-factors 3 \\
@@ -28,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import threading
 import time
 from dataclasses import dataclass
 
@@ -114,6 +122,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "and run ONE batched forward")
     ap.add_argument("--out", default=None,
                     help="append per-image result JSON lines to this file")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write the port's spans and counters and a "
+                         "torch.profiler device trace of the run to PATH "
+                         "(Chrome-trace JSON, utils/telemetry.trace)")
     a = ap.parse_args(argv)
     if a.nsp is None:
         a.nsp = 3 if (a.word == 32 or a.composite) else 1
@@ -132,7 +144,22 @@ def device_of(a) -> str:
 def main(argv=None):
     a = parse_args(argv)
     device_of(a)
+    from .utils import telemetry
 
+    if a.trace:
+        with telemetry.trace(a.trace) as summary:
+            _main(a)
+        print(json.dumps({"trace": a.trace,
+                          "idle_by_span": summary["idle_by_span"][:10]}))
+    elif a.plain:
+        _main(a)
+    else:
+        # The bootstrap spans alone, for the summary's boot_seconds_*.
+        with telemetry.enable(only=("bootstrap",)):
+            _main(a)
+
+
+def _main(a):
     from .approx.minimax import dp_schedule
     from .cnn import resnet as R
     from .nn import kernels as K
@@ -188,7 +215,8 @@ def main(argv=None):
                    oracle_agreement=n_ok / len(results),
                    seconds_per_image=round(
                        sum(r["seconds"] for r in results) / len(results), 2))
-    bt = getattr(a, "_boot_times", None)
+    ses = getattr(a, "_boot_session", None)
+    bt = ses.boot_times if ses is not None else None
     if bt:
         summary.update(
             n_bootstraps=len(bt),
@@ -219,16 +247,44 @@ def _log(msg):
 @dataclass
 class Session:
     """What the encrypted run is built on: the context, the key generator,
-    the backend (with its Bootstrapper under --real-boot), the decryptor,
-    the wall seconds of each bootstrap so far, and the set-up seconds."""
+    the backend (with its Bootstrapper under --real-boot), the decryptor
+    and the set-up seconds."""
 
     ctx: object
     kg: object
     B: object
     dec: object
-    boot_times: list
     keygen_s: float
     galois_keys: int
+    # The recorder's mark and the thread from which ``boot_times`` reads.
+    boot_mark: int = 0
+    boot_thread: int = 0
+
+    @property
+    def boot_times(self) -> list:
+        """``boot_seconds`` of the bootstraps this session's thread ran
+        since the session was built (or ``clear_boot_times``)."""
+        return boot_seconds(self.boot_mark, self.boot_thread)
+
+    def clear_boot_times(self) -> None:
+        from .utils import telemetry
+        self.boot_mark = telemetry.mark()
+        self.boot_thread = threading.get_ident()
+
+
+def boot_seconds(mark: int, thread: int) -> list:
+    """Host seconds of each bootstrap that thread `thread` ran after
+    `mark` (``telemetry.mark()``), each ended with the card synchronized:
+    the recorder's ``bootstrap`` spans outside sealed calls
+    (``utils/telemetry.py``; ``enable(only=("bootstrap",))`` records them
+    alone). Empty while the recorder is off; raises if it dropped spans,
+    which may have been bootstraps."""
+    from .utils import telemetry
+    if telemetry.dropped():
+        raise RuntimeError(f"the recorder dropped {telemetry.dropped()} "
+                           "spans: bootstrap times would be short")
+    return [s.ms / 1e3 for s in telemetry.spans_since(mark)
+            if s.name == "bootstrap" and s.synced and s.thread == thread]
 
 
 def make_params(a):
@@ -276,12 +332,10 @@ def make_bootstrapper(a, B):
 def build_session(a, rp, img) -> Session:
     """Context, keys, backend and Bootstrapper of an encrypted run, on the
     device of ``device_of(a)``. The rotation set is recorded from one
-    plain forward of ``img``. Every bootstrap is timed, with the device
-    synchronized, into ``Session.boot_times``."""
+    plain forward of ``img``."""
     import torch
 
     from .cnn import resnet as R
-    from .core import seal
     from .core.context import CkksContext
     from .core.evaluator import Decryptor, Encryptor, Evaluator
     from .core.keys import KeyGenerator
@@ -319,28 +373,10 @@ def build_session(a, rp, img) -> Session:
     if ctx.device.type == "cuda":
         torch.cuda.synchronize()
     _log(f"galois keygen done: {len(steps)} keys in {time.time()-t0:.0f}s")
-    s = Session(ctx=ctx, kg=kg, B=B, dec=dec, boot_times=[],
+    s = Session(ctx=ctx, kg=kg, B=B, dec=dec,
                 keygen_s=time.time() - t_keys,
                 galois_keys=len(ev.galois_keys.keys))
-    # Per-bootstrap wall-clock telemetry: steady-state times land in the
-    # summary as boot_seconds_{first,min,mean}.
-    if B.boot is not None:
-        inner = B.bootstrap
-
-        def timed_boot(v, **kw):
-            if seal.current() is not None:
-                # Inside a sealed program, where nothing may synchronize.
-                return inner(v, **kw)
-            t0 = time.time()
-            out = inner(v, **kw)
-            if out.data.is_cuda:
-                torch.cuda.synchronize(out.data.device)
-            s.boot_times.append(time.time() - t0)
-            _log(f"bootstrap #{len(s.boot_times)}: {s.boot_times[-1]:.2f}s "
-                 f"(level {v.level} -> {out.level})")
-            return out
-
-        B.bootstrap = timed_boot
+    s.clear_boot_times()
     return s
 
 
@@ -356,7 +392,7 @@ def _run_encrypted(a, rp, imgs):
         s = build_session(a, rp, imgs[0])
         if a.jit:
             a._session = s
-    a._boot_times = s.boot_times
+    a._boot_session = s
     B = s.B
     packed = [R.pack_input(rp, img) for img in imgs]     # [n_img][n_cts]
     if len(imgs) == 1:
