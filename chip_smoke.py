@@ -14,7 +14,12 @@ Phases (any failed check exits non-zero and prints no result):
              picks, with the device ms of each size at the main shapes, and
              with the device kernels of one wrapper call counted by the
              profiler (1 per NTT; the iNTT plus one for the key switch and
-             the mod-down); kernel and plain ms by CUDA events;
+             the mod-down); kernel and plain ms by CUDA events; then the
+             MAC kernel (csrc/mac.cu: hoisted key product, lifted c0,
+             masked sum) against its plain versions at the served ResNet
+             bootstrap's widths, with its ms, device ms and bound there
+             (``mac_kernels``); from phase 6 on, hold_path_to_plain holds
+             its three wrappers as it holds the four kernels;
   3. main    the production uint32 chain (logN=15, 22 limbs, alpha=8
              special primes, h=192): keygen (relin, Galois steps 1/2/4/8 and
              conjugation, public key), then requests that encode, encrypt,
@@ -178,7 +183,10 @@ Phases (any failed check exits non-zero and prints no result):
              within ERR_BOUND_SEALED_GPT2 of the plain run, one encryption
              replayed and held torch.equal to the plain-segment run, and
              what a graph shared between the layers' MLPs would cost;
-  12. report one JSON line of kernels, the card's name and power limit, and
+  12. report one JSON line of kernels (the four, then the MAC kernel's
+             row: its launches per phase, and the hoisted key product's
+             numbers beside those of each entry), the card's name and
+             power limit, and
              the last line {"ok": true, "device": {...}}.
 
 It imports the port only, never jax or fhe_gpt2_tpu. Without a CUDA device,
@@ -290,6 +298,11 @@ SOURCES = {
     "keyswitch": "fhe_gpt2_tpu_torch/csrc/keyswitch.cu",
     "moddown": "fhe_gpt2_tpu_torch/csrc/moddown.cu",
 }
+# The MAC kernel (csrc/mac.cu, no TPU counterpart): its three wrappers, held
+# to their plain versions under these names; its launches count under
+# _cuda.LAUNCHES["mac"].
+MAC_SOURCE = "fhe_gpt2_tpu_torch/csrc/mac.cu"
+MAC_WRAPPERS = ("hoisted_mac", "add_lifted", "masked_sum")
 
 
 def log(msg: str) -> None:
@@ -481,7 +494,7 @@ def run() -> dict:
         f"{len(ctx.key_limbs(L))}; composite L={cctx.L} k={cctx.k_sp}")
     rng = np.random.default_rng(7)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    kern = {k: {"max_abs_err": 0} for k in REPLACES}
+    kern = {k: {"max_abs_err": 0} for k in (*REPLACES, *MAC_WRAPPERS)}
 
     def timed(name, fn, plain, iters, plain_iters):
         # ms: CUDA events over a loop of calls, which includes the host's
@@ -658,6 +671,7 @@ def run() -> dict:
     kern["moddown"]["bound_ms"], kern["moddown"]["bound_by"] = bound(
         4.0 * (2 * (L + k) * n + 2 * L * n) + (b_i - 8.0 * 2 * k * n)
         + (b_f - 8.0 * 2 * L * n), muls)
+    mac = mac_kernels(torch, timer, same, rng, sms)
     for name in REPLACES:
         log(f"kernel {name}: equal to plain; {kern[name]['ms']:.4f} ms "
             f"(device {kern[name]['device_ms']:.4f} ms, plain "
@@ -852,6 +866,30 @@ def run() -> dict:
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": None,
                      "device_ms": k["device_ms"]})
+    ph = result["phases"]
+    mac_launches = {
+        "launches": ph["main"]["launches"]["mac"],
+        "launches_per_bootstrap": boot["launches"]["mac"],
+        "launches_per_resnet_image": net["launches"]["mac"],
+        "launches_per_pir_request": pir["launches"]["mac"],
+        "launches_per_gpt2_block": gpt["block_launches"]["mac"],
+        "launches_u64": u64["launches"]["mac"],
+        "launches_mesh_step": mesh["step_launches"]["mac"],
+        "launches_per_mesh_bootstrap": mesh["boot_launches"]["mac"],
+        "launches_sealed_capture": sealed["unit"]["capture_launches"]["mac"]}
+    rows.append({"name": "mac", "route": "cuda", "source": MAC_SOURCE,
+                 "replaces": None, **mac_launches,
+                 "replay_kernels_unit": None,
+                 "replay_kernels_bootstrap": None,
+                 "max_abs_err": max(kern[w]["max_abs_err"]
+                                    for w in MAC_WRAPPERS),
+                 "ms": mac["hoisted_mac"]["ms"],
+                 "plain_ms": mac["hoisted_mac"]["plain_ms"],
+                 "bound_ms": mac["hoisted_mac"]["bound_ms"],
+                 "bound_by": mac["hoisted_mac"]["bound_by"],
+                 "library_ms": None,
+                 "device_ms": mac["hoisted_mac"]["device_ms"],
+                 "entries": mac})
     result["kernels"] = rows
     result["script_s"] = time.perf_counter() - t_script
     log(f"chip_smoke: {result['script_s']:.1f} s from the first import of "
@@ -859,9 +897,93 @@ def run() -> dict:
     return result
 
 
+def mac_kernels(torch, timer, same, rng, sms) -> dict:
+    """Phase 2's MAC kernel (csrc/mac.cu): each wrapper torch.equal to its
+    plain version at the served ResNet bootstrap's widths (logN=15, 96 key
+    rows: CoeffToSlot's hoisted key product over 5 digits, the lifted c0 on
+    80 data rows, masked sums of 1, 8 and 9 terms), with and without a
+    batch of 2, on a Galois permutation and on any permutation; then at the
+    unbatched shapes ms (CUDA events), device ms (torch.profiler), device
+    kernels per call, plain ms and the bound. Returns {wrapper: numbers}."""
+    from fhe_gpt2_tpu_torch.core import ntt as nttmod, primes, tks
+    from fhe_gpt2_tpu_torch.core.modmath import word_tensor
+    n, J, D, r = 1 << 15, 96, 5, 80
+    t = nttmod.make_ntt_tables(primes.gen_primes_balanced(30, J, 2 * n), n,
+                               "cuda")
+
+    def words(mods, lead):
+        return residues(torch, rng, mods, lead, n, word_tensor)
+
+    def perm_of(p):
+        return torch.from_numpy(np.asarray(p, dtype=np.int64)).to("cuda")
+
+    galois = perm_of(nttmod.galois_ntt_permutation(n, pow(5, 1023, 2 * n)))
+    anyperm = perm_of(rng.permutation(n))
+    P = (1 << 31) * 4099 + 5
+    p = word_tensor(np.array([P % q for q in t.moduli], dtype=np.uint64)
+                    [:, None], "cuda")
+    ps = word_tensor(np.array([((P % q) << 32) // q for q in t.moduli],
+                              dtype=np.uint64)[:, None], "cuda")
+    qr = t.q[:r]
+    key = words(t.moduli, (2, D))
+    for lead in ((), (2,)):
+        tp = words(t.moduli, lead + (D,))
+        for perm, what in ((galois, "Galois"), (anyperm, "any permutation")):
+            same("hoisted_mac", tks.hoisted_mac(tp, key, perm, t),
+                 tks.hoisted_mac_plain(tp, key, perm, t),
+                 f"lead {lead} {what}")
+        acc, c0 = words(t.moduli, (2,) + lead), words(t.moduli[:r], lead)
+        want = tks.add_lifted_plain(acc, c0, galois, p, ps, qr)
+        same("add_lifted", tks.add_lifted(acc, c0, galois, p, ps, qr), want,
+             f"lead {lead}")
+        for T in (1, 8, 9):
+            vals = [words(t.moduli, (2,) + lead) for _ in range(T)]
+            pts = [words(t.moduli, ()) for _ in range(T)]
+            same("masked_sum", tks.masked_sum(vals, pts, t),
+                 tks.masked_sum_plain(vals, pts, t), f"lead {lead} T {T}")
+    tp, c0 = words(t.moduli, (D,)), words(t.moduli[:r], ())
+    acc = tks.hoisted_mac(tp, key, galois, t)
+    vals = [words(t.moduli, (2,)) for _ in range(8)]
+    pts = [words(t.moduli, ()) for _ in range(8)]
+    # Bytes: each operand word read once, each output word written once (the
+    # lifted c0's output rows read and written); multiplies: two 32-bit ones
+    # per 64-bit product, five per output word's reduction.
+    cases = {
+        "hoisted_mac": (
+            f"tpoly [{D},{J},N], key [2,{D},{J},N]",
+            lambda: tks.hoisted_mac(tp, key, galois, t),
+            lambda: tks.hoisted_mac_plain(tp, key, galois, t),
+            4.0 * (3 * D * J * n + 2 * J * n) + 8.0 * n,
+            4 * D * J * n + 10 * J * n),
+        "add_lifted": (
+            f"c0 [{r},N] into [2,{J},N]",
+            lambda: tks.add_lifted(acc, c0, galois, p, ps, qr),
+            lambda: tks.add_lifted_plain(acc, c0, galois, p, ps, qr),
+            4.0 * 3 * r * n + 8.0 * n, r * n * SHOUP_MULS),
+        "masked_sum": (
+            f"8 terms [2,{J},N], masks [{J},N]",
+            lambda: tks.masked_sum(vals, pts, t),
+            lambda: tks.masked_sum_plain(vals, pts, t),
+            4.0 * (8 * 3 * J * n + 2 * J * n), 4 * 8 * J * n + 10 * J * n)}
+    out = {}
+    for name, (shape, fn, plain, nbytes, muls) in cases.items():
+        k = out[name] = {"shape": shape, "ms": timer(fn, iters=20),
+                         "plain_ms": timer(plain, iters=3),
+                         "device_ms": profile_chain(torch, fn, 10)[
+                             "device_ms"],
+                         "kernels_per_call": kernels_per_call(torch, fn)}
+        k["bound_ms"], k["bound_by"] = bound(nbytes, muls)
+        check(k["kernels_per_call"] == 1,
+              f"{name}: {k['kernels_per_call']} device kernels per call")
+        log(f"kernel mac {name} ({shape}): equal to plain; {k['ms']:.4f} ms "
+            f"(device {k['device_ms']:.4f} ms, plain {k['plain_ms']:.3f} ms,"
+            f" bound {k['bound_ms']:.4f} ms by {k['bound_by']})")
+    return out
+
+
 def hold_path_to_plain(run, same) -> dict:
-    """Call run() once with the four kernel wrappers replaced, wherever the
-    port's modules hold them, by recorders: the first call of each distinct
+    """Call run() once with the four kernel wrappers and the MAC kernel's
+    three replaced, wherever the port's modules hold them, by recorders: the first call of each distinct
     operand shape, layout and table set is also computed by the wrapper's
     plain version on the same inputs and held to it with same(name, got,
     want, what). Returns {kernel: [signature, ...]} of the shapes held; a
@@ -878,11 +1000,28 @@ def hold_path_to_plain(run, same) -> dict:
     def md_sig(x, t_sp, t_q, ft):
         return (tuple(x.shape), x.stride(), None, ft.k), id(ft)
 
+    def mac_sig(x, kdata, perm, kt):
+        return (tuple(x.shape), x.stride(), tuple(kdata.shape), None), id(kt)
+
+    def lift_sig(acc, c0, perm, p, ps, q):
+        return (tuple(acc.shape), c0.stride(), None, q.shape[0]), id(q)
+
+    def sum_sig(values, pts, t):
+        return ((tuple(values[0].shape),
+                 tuple(v.stride() for v in values), None, len(values)),
+                id(t))
+
     wrappers = {"ntt_fwd": (tntt.ntt_forward, nttmod._ntt_stages, ntt_sig),
                 "ntt_inv": (tntt.ntt_inverse, nttmod._intt_stages, ntt_sig),
                 "keyswitch": (tks.fused_switch_key, tks.switch_key_plain,
                               ks_sig),
-                "moddown": (tks.fused_mod_down, tks.mod_down_plain, md_sig)}
+                "moddown": (tks.fused_mod_down, tks.mod_down_plain, md_sig),
+                "hoisted_mac": (tks.hoisted_mac, tks.hoisted_mac_plain,
+                                mac_sig),
+                "add_lifted": (tks.add_lifted, tks.add_lifted_plain,
+                               lift_sig),
+                "masked_sum": (tks.masked_sum, tks.masked_sum_plain,
+                               sum_sig)}
     held: dict = {name: {} for name in wrappers}
 
     def hold(name, out, plain, args, what):
@@ -893,7 +1032,9 @@ def hold_path_to_plain(run, same) -> dict:
         x = args[0]
         ia = 1 if name == "moddown" else 0        # x's first batch axis
         oa = 0 if name.startswith("ntt") else 1    # out's
-        if (x.dim() - 2 - ia < 1
+        if name == "hoisted_mac":
+            ia = 0 if x.dim() > 3 else None         # its digit axis is not
+        if (name == "masked_sum" or ia is None or x.dim() - 2 - ia < 1
                 or out.numel() * out.element_size() <= PLAIN_CHUNK_BYTES):
             same(name, out, plain(*args), what)
             return
@@ -903,11 +1044,19 @@ def hold_path_to_plain(run, same) -> dict:
 
     def recorder(name, wrapper, plain, sig):
         def call(*args, **kw):
-            out = wrapper(*args, **kw)
             s, tables = sig(*args)
-            if (s, tables) not in held[name]:
+            new = (s, tables) not in held[name]
+            if new and name == "add_lifted":
+                # In place on the card: the plain version reads the operand
+                # as it was.
+                want = plain(args[0].clone(), *args[1:])
+            out = wrapper(*args, **kw)
+            if new:
                 held[name][s, tables] = s
-                hold(name, out, plain, args, f"path {s[:3]}")
+                if name == "add_lifted":
+                    same(name, out, want, f"path {s[:3]}")
+                else:
+                    hold(name, out, plain, args, f"path {s[:3]}")
             return out
         return call
 

@@ -14,7 +14,10 @@ C entry returns ``cudaGetLastError()`` and ``check`` raises if it is not 0.
 Nothing here runs at import: the first kernel launch builds and loads.
 ``LAUNCHES`` counts, per kernel, the calls that launched it on the card
 (``count``, under a lock: a mesh launches from one thread per position);
-the plain versions never touch it.
+the plain versions never touch it. ``mac`` counts the wrapper calls that
+launched an entry of ``csrc/mac.cu`` (``tks.hoisted_mac``,
+``tks.add_lifted``, ``tks.masked_sum``: a masked sum of many terms is one
+call of several launches).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("ntt", "keyswitch", "moddown")
+SOURCES = ("ntt", "keyswitch", "moddown", "mac")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -48,9 +51,15 @@ _ENTRIES = {
     "moddown": {
         "md_fused": "p" * 18 + "i" * 6 + "p",
     },
+    "mac": {
+        "hoisted_mac": "p" * 7 + "i" * 5 + "p",
+        "add_lifted": "p" * 6 + "i" * 5 + "p",
+        "masked_sum": "pi" + "p" * 4 + "i" * 5 + "p",
+    },
 }
 
-LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "keyswitch": 0, "moddown": 0}
+LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "keyswitch": 0, "moddown": 0,
+            "mac": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()      # LAUNCHES and the first build and load

@@ -12,9 +12,10 @@ any device) to the plain PyTorch ops, as the JAX package runs its u64
 engine on XLA ops.
 
 The hoisted rotations decompose c1 once (``tks._decompose_core``, whose
-transforms are the NTT kernels on the card) and run only the key MAC (torch
-ops, as the JAX package's XLA ops) and the mod-down kernel per rotation;
-the double-hoisted form keeps the rotations in the extended QP basis until
+transforms are the NTT kernels on the card) and run only the key MAC
+(``tks.hoisted_mac``: the MAC kernel on the card, torch ops elsewhere, as
+the JAX package's XLA ops) and the mod-down kernel per rotation; the
+double-hoisted form keeps the rotations in the extended QP basis until
 one mod-down per accumulator (``mod_down_ext``).
 
 Encryption samples on the host, as the JAX package does, so the same seeds
@@ -394,11 +395,11 @@ class Evaluator:
 
     def _hoisted_mac(self, tpoly, kt, elt: int, level: int, D: int):
         """Permute the shared digits by the automorphism and multiply-
-        accumulate them with its key: [2, ..., l+k, N] before mod-down."""
+        accumulate them with its key (``tks.hoisted_mac``): [2, ..., l+k, N]
+        before mod-down."""
         telemetry.count("ks")
-        tp = tpoly.index_select(-1, self.ctx.galois_perm(elt))
         key = self.galois_keys[elt].sliced(self.ctx.key_limbs(level), D)
-        return tks._ks_mac_core(tp, key, kt)
+        return tks.hoisted_mac(tpoly, key, self.ctx.galois_perm(elt), kt)
 
     @telemetry.op("rotate_hoisted")
     def rotate_hoisted(self, a: Ciphertext, steps: list[int]) -> list[Ciphertext]:
@@ -475,11 +476,8 @@ class Evaluator:
             kt, tpoly, D = dec
             elt = ctx.galois_elt_from_step(s)
             acc = self._hoisted_mac(tpoly, kt, elt, l, D)
-            c0p = a.data[0].index_select(-1, ctx.galois_perm(elt))
-            pc0 = mul_mod_shoup(c0p, p_res[:r], p_shoup[:r], q)
-            e0 = torch.cat([add_mod(acc[0][..., :r, :], pc0, q),
-                            acc[0][..., r:, :]], dim=-2)
-            out.append(torch.stack([e0, acc[1]]))
+            out.append(tks.add_lifted(acc, a.data[0], ctx.galois_perm(elt),
+                                      p_res, p_shoup, q))
         return out
 
     @telemetry.op("mod_down_ext", level_arg=2)

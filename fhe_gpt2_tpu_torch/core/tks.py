@@ -24,17 +24,27 @@ path for its u64 engine (``_fused_ks_mode`` is None without Pallas tables,
 which exist only for 32-bit chains), so int64 never reaches a kernel. The
 hoisted rotations (``core/evaluator.py``) use the split halves themselves,
 as the JAX package does: ``_decompose_core`` with its transforms on the NTT
-route, then the ``_ks_mac_core`` torch ops.
+route, then per rotation ``hoisted_mac`` (the key product with the Galois
+gather) and, for the double-hoisted form, ``add_lifted`` (P·c0 rotated,
+added in place); the LT engine's masked sums are ``masked_sum``. Those
+three launch ``csrc/mac.cu`` for int32 CUDA words, which the JAX package
+leaves to XLA; their plain versions (``hoisted_mac_plain``,
+``add_lifted_plain``, ``masked_sum_plain``) are the torch ops the port ran
+before, which the CPU and the u64 engine keep. ``hoisted_mac`` and
+``masked_sum`` count each call as ``mac.calls`` and each that launched as
+``mac.kernel`` (``utils/telemetry.py``).
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from . import _cuda, rns
+from ..utils import telemetry
 from .modmath import add_mod, sub_mod, mul_mod, mul_mod_shoup, mod_sum, \
     shoup, to_numpy_u32, word_tensor
 from .ntt import NttTables, _intt_stages, _ntt_stages
@@ -314,3 +324,185 @@ def md_fused_args(a, x, t_q: NttTables, ft: FusedMdTables, out, log_c: int,
             mdt.p_mod_q, ft.p_mod_q_shoup, mdt.half_q, mdt.inv_p,
             mdt.inv_p_shoup, t_q.q, t_q.roots, t_q.roots_shoup, out,
             out.shape[0], ft.k, ft.l, t_q.logn, log_c, threads)
+
+
+# ---------------------------------------------------------------------------
+# Modular multiply-accumulates of the double-hoisted LT path (csrc/mac.cu)
+# ---------------------------------------------------------------------------
+
+MAC_CHUNK = 8           # masked-sum terms per launch and per int64 product
+MAC_THREADS = 256       # threads of a mac.cu CTA (csrc/mac.cu kThreads)
+
+
+def _mac_threads(n: int) -> int:
+    """Threads of a mac.cu CTA over rows of n words: 8 words a thread and
+    at most MAC_THREADS, so that a CTA's block of 8·threads words divides
+    the row."""
+    threads = min(MAC_THREADS, n // 8)
+    if threads < 1 or n & (n - 1):
+        raise ValueError(f"mac kernels: rows of {n} words (want a power of "
+                         "two of at least 8)")
+    return threads
+
+
+def hoisted_mac_plain(tpoly, kdata, perm, kt: NttTables):
+    """Plain version of ``hoisted_mac`` on any device: the gather, then
+    ``_ks_mac_core``."""
+    return _ks_mac_core(tpoly.index_select(-1, perm), kdata, kt)
+
+
+def hoisted_mac(tpoly: torch.Tensor, kdata: torch.Tensor,
+                perm: torch.Tensor, kt: NttTables) -> torch.Tensor:
+    """One hoisted rotation's key product: the shared digits
+    tpoly[*B, D, J, N] permuted by the automorphism's NTT-slot map perm
+    (int64 [N], ``CkksContext.galois_perm``) and multiply-accumulated with
+    its key kdata[2, D, J, N] over the digits, mod the rows' moduli of kt.
+    Returns [2, *B, J, N] before the mod-down; equals
+    ``_ks_mac_core(tpoly.index_select(-1, perm), kdata, kt)``. An int32
+    CUDA tpoly launches ``csrc/mac.cu``'s ``hoisted_mac`` (the gather in
+    the kernel) or raises; a CPU or int64 one runs the plain version."""
+    telemetry.count("mac.calls")
+    if tpoly.dtype == torch.int64 or tpoly.device.type == "cpu":
+        return hoisted_mac_plain(tpoly, kdata, perm, kt)
+    *lead, D, J, n = tpoly.shape
+    M = int(np.prod(lead)) if lead else 1
+    _cuda.check_operand(tpoly, "tpoly")
+    _cuda.check_operand(kdata, "kdata", (2, D, J, n))
+    if (perm.dtype != torch.int64 or perm.shape != (n,)
+            or perm.device != tpoly.device or not perm.is_contiguous()):
+        raise ValueError(f"hoisted_mac: perm must be a contiguous int64 [{n}] "
+                         f"on {tpoly.device}")
+    if kt.q.shape[0] != J:
+        raise ValueError(f"hoisted_mac: tables of {kt.q.shape[0]} rows for "
+                         f"{J} key rows")
+    _check_aligned(tpoly, "tpoly")
+    _check_aligned(kdata, "kdata")
+    threads = _mac_threads(n)
+    out = torch.empty((2, M, J, n), dtype=torch.int32, device=tpoly.device)
+    _cuda.call("mac", "hoisted_mac", tpoly, kdata, perm, kt.q, kt.ratio0,
+               kt.ratio1, out, M, D, J, n, threads)
+    _cuda.count("mac")
+    telemetry.count("mac.kernel")
+    return out.reshape(2, *lead, J, n)
+
+
+def add_lifted_plain(acc, c0, perm, p, p_shoup, q):
+    """Plain version of ``add_lifted`` on any device (a new tensor)."""
+    r = q.shape[0]
+    pc0 = mul_mod_shoup(c0.index_select(-1, perm), p[:r], p_shoup[:r], q)
+    e0 = torch.cat([add_mod(acc[0][..., :r, :], pc0, q), acc[0][..., r:, :]],
+                   dim=-2)
+    return torch.stack([e0, acc[1]])
+
+
+def add_lifted(acc: torch.Tensor, c0: torch.Tensor, perm: torch.Tensor,
+               p: torch.Tensor, p_shoup: torch.Tensor,
+               q: torch.Tensor) -> torch.Tensor:
+    """A double-hoisted rotation in the extended basis: a hoisted key
+    product acc[2, *B, J, N] (``hoisted_mac``) with P·c0[*B, r, N] permuted
+    by perm added to the r data rows of its first component; P's residues
+    p and their Shoup words over the key rows ([J, 1], their first r rows
+    read), q the data rows' moduli [r, 1]. An int32 CUDA acc is updated in
+    place by ``csrc/mac.cu``'s ``add_lifted`` and returned (acc must be
+    contiguous, as ``hoisted_mac`` returns it); a CPU or int64 one gets
+    the plain version, a new tensor."""
+    if acc.dtype == torch.int64 or acc.device.type == "cpu":
+        return add_lifted_plain(acc, c0, perm, p, p_shoup, q)
+    _, *lead, J, n = acc.shape
+    r = q.shape[0]
+    M = int(np.prod(lead)) if lead else 1
+    c0 = c0.contiguous()
+    _cuda.check_operand(acc, "acc")
+    _cuda.check_operand(c0, "c0", (*lead, r, n))
+    if perm.dtype != torch.int64 or perm.shape != (n,) or r > J:
+        raise ValueError("add_lifted: operands do not match")
+    _check_aligned(acc, "acc")
+    _check_aligned(c0, "c0")
+    pr, ps = p[:r].contiguous(), p_shoup[:r].contiguous()
+    _cuda.call("mac", "add_lifted", c0, perm, pr, ps, q, acc, M, r, J, n,
+               _mac_threads(n))
+    _cuda.count("mac")
+    return acc
+
+
+def masked_sum_plain(values: list, pts: list, t: NttTables) -> torch.Tensor:
+    """Plain version of ``masked_sum`` on any device: the JAX package's
+    stacked ``mul_mod`` + ``mod_sum`` over the term axis, in chunks of
+    MAC_CHUNK terms. On the int32 word an int64 sum of the canonical
+    products, reduced once, is the same canonical residue; on the int64
+    word (residues up to 2**62, whose sum of products would overflow) each
+    chunk folds with ``mod_sum`` and the chunks with ``add_mod``."""
+    q = t.q
+    wide = values[0].dtype == torch.int64
+    acc = None
+    for i in range(0, len(values), MAC_CHUNK):
+        v = torch.stack(values[i:i + MAC_CHUNK], dim=1)        # [2, T, ...]
+        p = torch.stack(pts[i:i + MAC_CHUNK])                  # [T, l, N]
+        p = p.reshape(p.shape[0], *(1,) * (v.ndim - 4), *p.shape[1:])
+        prod = mul_mod(v, p, q, t.ratio0, t.ratio1)
+        if wide:
+            part = mod_sum(prod, q, axis=1)
+            acc = part if acc is None else add_mod(acc, part, q)
+        else:
+            part = prod.long().sum(dim=1)
+            acc = part if acc is None else acc + part
+    return acc if wide else torch.remainder(acc, q).to(torch.int32)
+
+
+def _term_rows(v: torch.Tensor, M: int, J: int, n: int) -> tuple:
+    """(stride of c, of the flattened batch, of j) of a term v[2, *B, J, N]
+    whose batch axes merge into one and whose rows are contiguous words
+    starting on 16 bytes."""
+    try:
+        s = v.view(2, M, J, n).stride()
+    except RuntimeError:
+        raise ValueError(f"masked_sum: a term of shape {tuple(v.shape)} and "
+                         f"strides {v.stride()} has no [2, M, J, N] view")
+    _check_aligned(v, "term")
+    if s[3] != 1 or any(x % 4 for x in s[:3]):
+        raise ValueError(f"masked_sum: a term's strides {v.stride()} do not "
+                         "give rows of contiguous words on 16 bytes")
+    return s[0], s[1], s[2]
+
+
+def masked_sum(values: list, pts: list, t: NttTables) -> torch.Tensor:
+    """Σ_t values[t]·pts[t] mod q over terms [2, *B, l, N] (views with any
+    row, batch and component strides) and masks [l, N], with q and its
+    Barrett words from the NTT tables t: [2, *B, l, N]. int32 CUDA terms
+    launch ``csrc/mac.cu``'s ``masked_sum`` once per MAC_CHUNK terms (each
+    launch after the first accumulating onto the output) or raise (every
+    row must start on 16 bytes); CPU or int64 ones run the plain
+    version."""
+    telemetry.count("mac.calls")
+    v0 = values[0]
+    if v0.dtype == torch.int64 or v0.device.type == "cpu":
+        return masked_sum_plain(values, pts, t)
+    if len(values) != len(pts):
+        raise ValueError(f"masked_sum: {len(values)} terms, {len(pts)} masks")
+    shape, (J, n) = tuple(v0.shape), v0.shape[-2:]
+    lead = shape[1:-2]
+    M = int(np.prod(lead)) if lead else 1
+    if shape[0] != 2 or t.q.shape[0] != J:
+        raise ValueError(f"masked_sum: terms {shape} against tables of "
+                         f"{t.q.shape[0]} rows")
+    threads = _mac_threads(n)
+    out = torch.empty((2, M, J, n), dtype=torch.int32, device=v0.device)
+    words = [0] * (6 * MAC_CHUNK)
+    for i in range(0, len(values), MAC_CHUNK):
+        vs, ps = values[i:i + MAC_CHUNK], pts[i:i + MAC_CHUNK]
+        for k, (v, p) in enumerate(zip(vs, ps)):
+            _cuda.check_operand(v, "term", shape, contiguous=False)
+            _cuda.check_operand(p, "mask", (J, n), contiguous=False)
+            _check_aligned(p, "mask")
+            if p.stride(1) != 1 or p.stride(0) % 4:
+                raise ValueError(f"masked_sum: a mask's strides "
+                                 f"{p.stride()} do not give rows of "
+                                 "contiguous words on 16 bytes")
+            words[k::MAC_CHUNK] = (v.data_ptr(), p.data_ptr(),
+                                   *_term_rows(v, M, J, n), p.stride(0))
+        desc = (ctypes.c_longlong * len(words))(*words)
+        _cuda.call("mac", "masked_sum", ctypes.addressof(desc), len(vs),
+                   t.q, t.ratio0, t.ratio1, out, M, J, n, threads, int(i > 0))
+    _cuda.count("mac")
+    telemetry.count("mac.kernel")
+    return out.reshape(2, *lead, J, n)

@@ -39,17 +39,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core import seal
+from ..core import seal, tks
 from ..core.context import CkksContext
 from ..core.evaluator import (
     Ciphertext, Decryptor, Encryptor, Evaluator, Plaintext, _scales_close,
     fake_bootstrap, stack_cts, unstack_cts)
-from ..core.modmath import add_mod, mod_sum, mul_mod
+from ..core.modmath import mod_sum
 from ..utils import telemetry
 
-# Terms per int64 product in the masked sums: bounds their transients to
-# MAC_CHUNK widened copies of one operand.
-MAC_CHUNK = 8
 # Bound on id()-keyed plaintext cache entries: numpy arrays take no weak
 # references, so each entry pins its source array (a recycled id must never
 # hit a stale entry), and an LRU cap bounds the pins.
@@ -182,26 +179,10 @@ def _masked_sum(values: list[torch.Tensor], pts: list[torch.Tensor],
                 t) -> torch.Tensor:
     """Σ_t values[t]·pts[t] mod q over [2, *B, l, N] operands and [l, N]
     plaintexts, with q and its Barrett words from the NTT tables t: the JAX
-    package's stacked ``mul_mod`` + ``mod_sum`` over the term axis, in
-    chunks of MAC_CHUNK terms. On the int32 word an int64 sum of the
-    canonical products, reduced once, is the same canonical residue; on the
-    int64 word (residues up to 2**62, whose sum of products would overflow)
-    each chunk folds with ``mod_sum`` and the chunks with ``add_mod``."""
-    q = t.q
-    wide = values[0].dtype == torch.int64
-    acc = None
-    for i in range(0, len(values), MAC_CHUNK):
-        v = torch.stack(values[i:i + MAC_CHUNK], dim=1)        # [2, T, ...]
-        p = torch.stack(pts[i:i + MAC_CHUNK])                  # [T, l, N]
-        p = p.reshape(p.shape[0], *(1,) * (v.ndim - 4), *p.shape[1:])
-        prod = mul_mod(v, p, q, t.ratio0, t.ratio1)
-        if wide:
-            part = mod_sum(prod, q, axis=1)
-            acc = part if acc is None else add_mod(acc, part, q)
-        else:
-            part = prod.long().sum(dim=1)
-            acc = part if acc is None else acc + part
-    return acc if wide else torch.remainder(acc, q).to(torch.int32)
+    package's stacked ``mul_mod`` + ``mod_sum`` over the term axis
+    (``tks.masked_sum``: the MAC kernel for int32 words on the card, the
+    torch ops elsewhere)."""
+    return tks.masked_sum(values, pts, t)
 
 
 @dataclass

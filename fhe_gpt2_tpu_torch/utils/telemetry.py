@@ -29,9 +29,12 @@ CUDA events and no counters (the ``run_resnet`` CLI's bootstrap times).
   backend's mask cache), ``op.<name>@<level>`` (outermost evaluator ops, at
   the level of the ciphertext they were called on), ``ks`` (key switches
   and hoisted key products: each reads a key), ``ks.decompose`` (the
-  hoisted rotations' shared digit decompositions).
-* A sealed program (``nn/backend.py``) keeps the op and key-switch counters
-  of its warm pass (``collect``, which counts even with the recorder off)
+  hoisted rotations' shared digit decompositions), ``mac.calls`` (the
+  hoisted key products and the LT engine's masked sums, ``core/tks.py``
+  ``hoisted_mac``/``masked_sum``) and ``mac.kernel`` (those of them that
+  launched ``csrc/mac.cu``).
+* A sealed program (``nn/backend.py``) keeps the op, key-switch and MAC
+  counters of its warm pass (``collect``, which counts even with the recorder off)
   and each graph replay adds them (``add``): a replay calls no Python. A
   capture records nothing (``muted``).
 
@@ -74,9 +77,9 @@ from dataclasses import dataclass, field
 import torch.autograd.profiler as _prof
 
 MAX_SPANS = 2_000_000
-# The counters a sealed program's replay adds: its warm pass's ops and key
-# switches. A replay looks up no mask and encodes nothing.
-REPLAYED = ("op.", "ks")
+# The counters a sealed program's replay adds: its warm pass's ops, key
+# switches and MACs. A replay looks up no mask and encodes nothing.
+REPLAYED = ("op.", "ks", "mac.")
 SPIN_CYCLES = 100_000          # the alignment marker's spin kernel
 
 _enabled = 0                   # enable() depth

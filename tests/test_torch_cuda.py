@@ -24,6 +24,10 @@ from fhe_gpt2_tpu_torch.core.modmath import word_tensor
 
 pytestmark = pytest.mark.cuda
 
+# The four cluster kernels' launch counts: a run that makes no hoisted key
+# product and no masked sum launches no csrc/mac.cu entry.
+FOUR = ("ntt_fwd", "ntt_inv", "keyswitch", "moddown")
+
 
 @pytest.fixture
 def cuda():
@@ -285,7 +289,8 @@ def test_hoisted_paths_and_mod_raise_on_card_equal_cpu(cuda, logn, stacked):
 def test_hoisted_decomposition_runs_on_the_ntt_kernels(cuda):
     """On CUDA tensors the shared decomposition takes one iNTT and one NTT
     kernel launch and no key-switch kernel; the extended-basis rotations
-    add none beyond it, and each mod_down_ext is one mod-down call."""
+    add two MAC launches each and no other kernel, and each mod_down_ext is
+    one mod-down call."""
     ctx = _cached_ctx(cuda, True, 15)
     kg = KeyGenerator(ctx, seed=3)
     ev = Evaluator(ctx, galois_keys=kg.galois_keys([1, 5]))
@@ -297,17 +302,22 @@ def test_hoisted_decomposition_runs_on_the_ntt_kernels(cuda):
     torch.cuda.synchronize()
     assert tpoly.is_cuda and tpoly.shape == (D, ctx.L + ctx.k_sp, ctx.n)
     d = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
-    assert d == {"ntt_fwd": 1, "ntt_inv": 1, "keyswitch": 0, "moddown": 0}
+    assert d == {"ntt_fwd": 1, "ntt_inv": 1, "keyswitch": 0, "moddown": 0,
+                 "mac": 0}
     before = dict(_cuda.LAUNCHES)
     exts = ev.hoisted_rotations_ext(ct, [1, 5])
     d = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
-    assert d == {"ntt_fwd": 1, "ntt_inv": 1, "keyswitch": 0, "moddown": 0}
+    # Each rotation: its key product (hoisted_mac) and the lifted c0
+    # (add_lifted), both in csrc/mac.cu.
+    assert d == {"ntt_fwd": 1, "ntt_inv": 1, "keyswitch": 0, "moddown": 0,
+                 "mac": 4}
     before = dict(_cuda.LAUNCHES)
     for e in exts:
         ev.mod_down_ext(e, ct.level, ct.scale)
     d = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
     # Each mod-down call is its iNTT of the special limbs and md_fused.
-    assert d == {"ntt_fwd": 0, "ntt_inv": 2, "keyswitch": 0, "moddown": 2}
+    assert d == {"ntt_fwd": 0, "ntt_inv": 2, "keyswitch": 0, "moddown": 2,
+                 "mac": 0}
 
 
 def _bootstrap_run(dev):
@@ -437,7 +447,7 @@ def test_relu_on_card_equals_cpu(cuda):
     _cuda.reset_launches()
     got = _relu_run(cuda)
     torch.cuda.synchronize()
-    assert all(v > 0 for v in _cuda.LAUNCHES.values()), _cuda.LAUNCHES
+    assert all(_cuda.LAUNCHES[k] > 0 for k in FOUR), _cuda.LAUNCHES
     want = _relu_run("cpu")
     assert got.scale == want.scale
     assert torch.equal(got.data.cpu(), want.data)
@@ -616,7 +626,7 @@ def test_sealed_unit_op_replays_equal_eager(cuda):
     want = unit(x, y)
     torch.cuda.synchronize()
     once = dict(_cuda.LAUNCHES)
-    assert all(v > 0 for v in once.values()), once
+    assert all(once[k] > 0 for k in FOUR), once
     _cuda.reset_launches()
     call = jit_sealed(B, unit, x, y)
     torch.cuda.synchronize()
@@ -1121,7 +1131,7 @@ def test_mesh_on_one_card_equals_single_device(cuda, composite):
     for g, w in zip(got, want):
         assert g.level == w.level and g.scale == w.scale
         assert torch.equal(g.data, w.data)
-    path = [k for k in launches if not (composite and k == "ntt_fwd")]
+    path = [k for k in FOUR if not (composite and k == "ntt_fwd")]
     assert all(launches[k] > 0 for k in path), launches
 
 
@@ -1176,4 +1186,277 @@ def test_mesh_over_two_cards_equals_single_device(two_cards):
     got, want, launches = _mesh_run(two_cards[0], two_cards)
     for g, w in zip(got, want):
         assert torch.equal(g.data, w.data)
-    assert all(v > 0 for v in launches.values()), launches
+    assert all(launches[k] > 0 for k in FOUR), launches
+
+
+# ---------------------------------------------------------------------------
+# The MAC kernels (csrc/mac.cu): hoisted key products, the lifted c0, masked
+# sums
+# ---------------------------------------------------------------------------
+
+def _mac_tables(cuda, logn, rows):
+    """NTT tables of `rows` 30-bit primes at N = 2^logn."""
+    n = 1 << logn
+    return nttmod.make_ntt_tables(primes.gen_primes_balanced(30, rows, 2 * n),
+                                  n, cuda)
+
+
+def _offset(x, words):
+    """x's words in a new allocation starting `words` words past a 16-byte
+    boundary (words=1: the kernels' 4-byte route)."""
+    buf = torch.empty(x.numel() + words, dtype=x.dtype, device=x.device)
+    y = buf[words:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+@pytest.mark.parametrize("logn", [11, 15, 16])
+@pytest.mark.parametrize("D,lead", [(1, ()), (5, ()), (3, (2,))])
+@pytest.mark.parametrize("perm_kind", ["galois", "any"])
+def test_hoisted_mac_kernel_equals_plain(cuda, logn, D, lead, perm_kind):
+    """hoisted_mac at 96 key rows (the bootstrap's top), a batch, one and
+    five digits; a Galois permutation (the staged gather) and any
+    permutation (entries outside the staged block read from device
+    memory)."""
+    t = _mac_tables(cuda, logn, 96 if logn == 15 else 7)
+    J, n = t.q.shape[0], t.n
+    rng = np.random.default_rng(logn + D)
+    tp = _residues(rng, t.moduli, lead + (D,), n, cuda)
+    key = _residues(rng, t.moduli, (2, D), n, cuda)
+    perm = torch.from_numpy(nttmod.galois_ntt_permutation(
+        n, pow(5, 77, 2 * n)).astype(np.int64)).to(cuda)
+    if perm_kind == "any":
+        perm = torch.randperm(n, generator=torch.Generator().manual_seed(3)
+                              ).to(cuda)
+    before = _cuda.LAUNCHES["mac"]
+    got = tks.hoisted_mac(tp, key, perm, t)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["mac"] == before + 1
+    assert got.shape == (2, *lead, J, n)
+    assert torch.equal(got, tks.hoisted_mac_plain(tp, key, perm, t))
+
+
+@pytest.mark.parametrize("lead", [(), (2,)])
+def test_add_lifted_kernel_equals_plain(cuda, lead):
+    """The c0 epilogue at logN=15 over 96 key rows, 80 of them data rows:
+    in place on the card, the plain version's words."""
+    t = _mac_tables(cuda, 15, 96)
+    n, r = t.n, 80
+    rng = np.random.default_rng(80 + len(lead))
+    acc = _residues(rng, t.moduli, (2,) + lead, n, cuda)
+    c0 = _residues(rng, t.moduli[:r], lead, n, cuda)
+    P = (1 << 31) * 12345 + 7
+    p = word_tensor(np.array([P % q for q in t.moduli], dtype=np.uint64)
+                    [:, None], cuda)
+    ps = word_tensor(np.array([((P % q) << 32) // q for q in t.moduli],
+                              dtype=np.uint64)[:, None], cuda)
+    perm = torch.from_numpy(nttmod.galois_ntt_permutation(
+        n, pow(5, 300, 2 * n)).astype(np.int64)).to(cuda)
+    want = tks.add_lifted_plain(acc, c0, perm, p, ps, t.q[:r])
+    got = tks.add_lifted(acc, c0, perm, p, ps, t.q[:r])
+    torch.cuda.synchronize()
+    assert got.data_ptr() == acc.data_ptr()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("T", [1, 8, 9, 63])
+@pytest.mark.parametrize("lead", [(), (2,)])
+def test_masked_sum_kernel_equals_plain(cuda, T, lead):
+    """masked_sum at logN=15 over 96 rows: T terms, in launches of up to
+    MAC_CHUNK, among them components of a stacked batch (``e[:, bi]``), row
+    slices of wider words and the last two components of three."""
+    t = _mac_tables(cuda, 15, 96)
+    J, n = t.q.shape[0], t.n
+    rng = np.random.default_rng(T + len(lead))
+    stacked = _residues(rng, t.moduli, (2, 3) + lead, n, cuda)
+    wide = _residues(rng, t.moduli + t.moduli[:4], (2,) + lead, n, cuda)
+    vals = []
+    for i in range(T):
+        kind = i % 4
+        if kind == 0:
+            vals.append(_residues(rng, t.moduli, (2,) + lead, n, cuda))
+        elif kind == 1:
+            vals.append(stacked[:, i % 3])
+        elif kind == 2:
+            vals.append(wide[..., :J, :])
+        else:
+            vals.append(_residues(rng, t.moduli, (3,) + lead, n, cuda)[1:])
+    pts = [_residues(rng, t.moduli, (), n, cuda) for _ in range(T)]
+    before = _cuda.LAUNCHES["mac"]
+    got = tks.masked_sum(vals, pts, t)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["mac"] == before + 1
+    assert got.shape == (2, *lead, J, n)
+    assert torch.equal(got, tks.masked_sum_plain(vals, pts, t))
+
+
+def test_mac_kernels_raise_off_the_16_byte_grid(cuda):
+    """The kernels move words 16 bytes at a time: an operand whose data
+    starts 4 bytes past a boundary is refused, not read."""
+    t = _mac_tables(cuda, 11, 7)
+    n, r = t.n, 4
+    rng = np.random.default_rng(4)
+    tp = _residues(rng, t.moduli, (2,), n, cuda)
+    key = _residues(rng, t.moduli, (2, 2), n, cuda)
+    perm = torch.arange(n, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        tks.hoisted_mac(_offset(tp, 1), key, perm, t)
+    acc = tks.hoisted_mac(tp, key, perm, t)
+    c0 = _residues(rng, t.moduli[:r], (), n, cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        tks.add_lifted(acc, _offset(c0, 1), perm, t.q, t.q, t.q[:r])
+    v = _residues(rng, t.moduli, (2,), n, cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        tks.masked_sum([v, _offset(v, 1)], [c0[:1].expand(7, n)] * 2, t)
+
+
+def test_mac_kernels_in_a_cuda_graph_equal_plain(cuda):
+    """hoisted_mac, add_lifted and a two-launch masked sum captured in one
+    torch.cuda.graph: each replay, on inputs rewritten in place, gives the
+    plain versions' words (the masked sum's terms reach the kernel by
+    value, so a replay reads the captured pointers)."""
+    t = _mac_tables(cuda, 15, 96)
+    J, n, r = t.q.shape[0], t.n, 80
+    rng = np.random.default_rng(5)
+    tp = _residues(rng, t.moduli, (5,), n, cuda)
+    key = _residues(rng, t.moduli, (2, 5), n, cuda)
+    c0 = _residues(rng, t.moduli[:r], (), n, cuda)
+    vals = [_residues(rng, t.moduli, (2,), n, cuda) for _ in range(9)]
+    pts = [_residues(rng, t.moduli, (), n, cuda) for _ in range(9)]
+    p = word_tensor(np.array([(1 << 40) % q for q in t.moduli],
+                             dtype=np.uint64)[:, None], cuda)
+    ps = word_tensor(np.array([(((1 << 40) % q) << 32) // q
+                               for q in t.moduli], dtype=np.uint64)[:, None],
+                     cuda)
+    perm = torch.from_numpy(nttmod.galois_ntt_permutation(
+        n, pow(5, 9, 2 * n)).astype(np.int64)).to(cuda)
+
+    def step():
+        acc = tks.hoisted_mac(tp, key, perm, t)
+        return tks.add_lifted(acc, c0, perm, p, ps, t.q[:r]), \
+            tks.masked_sum(vals, pts, t)
+
+    def plain():
+        acc = tks.hoisted_mac_plain(tp, key, perm, t)
+        return tks.add_lifted_plain(acc, c0, perm, p, ps, t.q[:r]), \
+            tks.masked_sum_plain(vals, pts, t)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()                                    # warm up off the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    for seed in (6, 7):
+        g = np.random.default_rng(seed)
+        for x, mods, lead in [(tp, t.moduli, (5,)), (c0, t.moduli[:r], ()),
+                              (vals[8], t.moduli, (2,)), (pts[0], t.moduli,
+                                                          ())]:
+            x.copy_(_residues(g, mods, lead, n, cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(outs, plain()):
+            assert torch.equal(got, want)
+
+
+# run_resnet's flags of the ResNet-20 cells (fhe_bench/configs/
+# resnet20-cifar10.json): logN 15, 80 limbs, 16 special primes, base-16
+# digit keys, Bootstrapper(3, 3).
+CELL_FLAGS = ["--composite", "--log-scale", "54", "--real-boot", "--levels",
+              "39", "--nsp", "16", "--digit-keys", "--boot-factors", "3",
+              "--start-level", "18", "--headroom", "0"]
+
+
+@pytest.fixture(scope="module")
+def cell_boot():
+    """The served ResNet's Bootstrapper at its chain on the card, with
+    run_resnet's keys (relinearization, the 48 digit keys, conjugation),
+    and one ciphertext at the chain's base."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    from fhe_gpt2_tpu_torch import run_resnet
+    from fhe_gpt2_tpu_torch.core.keys import digit_steps
+    from fhe_gpt2_tpu_torch.nn.backend import CkksBackend
+    a = run_resnet.parse_args(CELL_FLAGS)
+    ctx = CkksContext(run_resnet.make_params(a), device="cuda")
+    kg = KeyGenerator(ctx, seed=1)
+    ev = Evaluator(ctx, relin_key=kg.relin_key())
+    enc = Encryptor(ctx, secret=kg.secret, seed=2)
+    B = CkksBackend(ctx=ctx, ev=ev, enc=enc, dec=None, default_level=ctx.L)
+    B.boot = run_resnet.make_bootstrapper(a, B)
+    ev.galois_keys = kg.galois_keys(
+        steps=digit_steps(ctx.params.slots, base=16), conjugate=True)
+    z = np.random.default_rng(9).uniform(-1, 1, ctx.params.slots)
+    ct = enc.encrypt(ev.make_plain(z, ctx.params.scale, ctx.base_limbs))
+    yield B, ct, Decryptor(ctx, kg.secret), z
+    B.release_caches()
+    torch.cuda.empty_cache()
+
+
+def test_mac_kernels_equal_plain_at_the_cell_bootstrap_shapes(cell_boot):
+    """One eager bootstrap of the served ResNet with the three MAC wrappers
+    recording: the first call at each operand signature is held
+    torch.equal to its plain version on the same inputs. The shapes
+    include CoeffToSlot's hoisted products at 94 and 92 key rows and 5
+    digits (its first factor, at 96, has no baby rotation) and masked sums
+    of 1 and 8 terms."""
+    B, ct, _, _ = cell_boot
+    held = {"hoisted_mac": set(), "add_lifted": set(), "masked_sum": set()}
+    real = {k: getattr(tks, k) for k in held}
+    plain = {k: getattr(tks, k + "_plain") for k in held}
+
+    def recorder(name):
+        def call(*args):
+            x = args[0]
+            sig = ((tuple(x[0].shape), len(x), tuple(v.stride() for v in x))
+                   if name == "masked_sum" else (tuple(x.shape), x.stride()))
+            if sig in held[name]:
+                return real[name](*args)
+            held[name].add(sig)
+            want = plain[name](*([x.clone()] + list(args[1:]))
+                               if name == "add_lifted" else args)
+            got = real[name](*args)
+            assert torch.equal(got, want), (name, sig)
+            return got
+        return call
+
+    try:
+        for k in held:
+            setattr(tks, k, recorder(k))
+        B.boot.bootstrap(ct)
+        torch.cuda.synchronize()
+    finally:
+        for k, f in real.items():
+            setattr(tks, k, f)
+    digits_rows = {s[0][-3:-1] for s in held["hoisted_mac"]}
+    assert {(5, 94), (5, 92)} <= digits_rows, sorted(digits_rows)
+    terms = {s[1] for s in held["masked_sum"]}
+    assert {1, 8} <= terms, sorted(terms)
+    assert held["add_lifted"]
+
+
+def test_sealed_bootstrap_at_the_cell_chain_equals_plain_macs(cell_boot,
+                                                             monkeypatch):
+    """A sealed bootstrap (every stage a CUDA-graph replay, the MAC kernels
+    inside the graphs) at the served ResNet's chain gives the words of the
+    same bootstrap run eagerly with the plain MAC versions patched in, and
+    counts every MAC call as a kernel launch."""
+    from fhe_gpt2_tpu_torch.utils import telemetry
+    B, ct, dec, z = cell_boot
+    boot = B.boot
+    boot.bootstrap_jitted(ct)            # warm passes and captures
+    with telemetry.enable():
+        got = boot.bootstrap_jitted(ct)  # replays
+        torch.cuda.synchronize()
+    c = telemetry.snapshot().counters
+    telemetry.reset()
+    assert c["mac.calls"] == c["mac.kernel"] > 0, c
+    for k in ("hoisted_mac", "add_lifted", "masked_sum"):
+        monkeypatch.setattr(tks, k, getattr(tks, k + "_plain"))
+    want = boot.bootstrap(ct)
+    assert got.scale == want.scale and got.level == want.level
+    assert torch.equal(got.data, want.data)
+    err = np.abs(np.real(dec.decrypt(got)) - z)
+    assert err.mean() < 1e-3, err.mean()

@@ -1,8 +1,9 @@
 """The recorder (fhe_gpt2_tpu_torch/utils/telemetry.py) over a sealed
 bootstrap on the card.
 
-A graph replay calls no Python, so its op and key-switch counts are the
-ones its stages' warm passes recorded: a replayed bootstrap must add
+A graph replay calls no Python, so its op, key-switch and MAC counts are
+the ones its stages' warm passes recorded (every MAC call on the card
+launching the kernel): a replayed bootstrap must add
 exactly what one eager bootstrap counts. Its stages' CUDA events must
 resolve, and their device ms must cover the synchronized host wall of the
 bootstrap. Skips without a card; imports neither jax nor fhe_gpt2_tpu:
@@ -71,6 +72,7 @@ def test_sealed_replay_counts_and_times_one_bootstrap(boot):
         out = B.bootstrap(ct)          # sealed: every stage replayed
     replayed = _counts()
     assert eager["ks"] > 0 and replayed == eager
+    assert eager["mac.kernel"] == eager["mac.calls"] > 0, eager
     spans = telemetry.snapshot().spans
     [whole] = [s for s in spans if s.name == "bootstrap"]
     stages = [s for s in spans if s.name.startswith("boot.")]
