@@ -13,7 +13,10 @@ The port's copy of ``fhe_gpt2_tpu/nn/kernels.py``: numpy over the backend
 protocol of ``nn/backend.py``, unchanged but for the ``relu`` and
 ``newton_rsqrt`` spans of ``utils/telemetry.py``, so on the port's backends
 it issues the same ops in the same order as the JAX package does on its
-own.
+own. Added for Granite 4.0-H (no JAX counterpart): ``silu`` and
+``softplus`` in ``gelu``'s form, ``exp_scaled``, an exp that holds on a
+wide negative domain, and ``newton_step`` (``newton_rsqrt``'s step, the
+same ops).
 """
 
 from __future__ import annotations
@@ -153,6 +156,97 @@ def gelu(B, x, bound: float = 8.0, degree: int = 46):
     return B.add(h, B.mul_const(x, 0.5))
 
 
+# The input range of silu and softplus (Granite 4.0-H's inputs to them stay
+# within ±5 at N(0, 0.02) weights), and the fit interval [-bound, 0] of
+# exp_scaled's polynomial.
+ACT_BOUND = 8.0
+EXP_NEG_BOUND = 2.0
+# exp_scaled brings the scale back to the context's every this many
+# squarings.
+EXP_RESET = 4
+
+
+def _even_plan(h, bound: float, degree: int):
+    """Chebyshev plan of the even function h on [-bound, bound]."""
+    from ..approx.remez import cheb_interp
+    p = cheb_interp(h, -bound, bound, degree)
+    return make_plan(np.array([float(c) for c in p.coeffs]),
+                     float(p.lo), float(p.hi))
+
+
+def silu_even(x):
+    """h(x) = (x/2)·tanh(x/2), the even part of SiLU(x) = x/2 + h(x)."""
+    return 0.5 * x * np.tanh(0.5 * x)
+
+
+def softplus_even(x):
+    """h(x) = log(2·cosh(x/2)), the even part of softplus(x) = x/2 + h(x)."""
+    a = np.abs(0.5 * x)
+    return a + np.log1p(np.exp(-2.0 * a))
+
+
+@lru_cache(maxsize=None)
+def silu_even_plan(bound: float = ACT_BOUND, degree: int = 56):
+    return _even_plan(silu_even, bound, degree)
+
+
+@lru_cache(maxsize=None)
+def softplus_even_plan(bound: float = ACT_BOUND, degree: int = 48):
+    return _even_plan(softplus_even, bound, degree)
+
+
+def silu(B, x, bound: float = ACT_BOUND, degree: int = 56):
+    """SiLU(x) = x·σ(x) for |x| ≤ bound: x/2 + h(x), h even (the form of
+    ``gelu``). At (8, 56) |error| ≤ 6.6e-10; (8, 24): 1.4e-4."""
+    h = eval_plan(B, silu_even_plan(bound, degree), x)
+    return B.add(h, B.mul_const(x, 0.5))
+
+
+def softplus(B, x, bound: float = ACT_BOUND, degree: int = 48):
+    """softplus(x) = log(1 + e^x) for |x| ≤ bound: x/2 + log(2·cosh(x/2)).
+    At (8, 48) |error| ≤ 7.5e-10; (8, 24): 1.4e-5."""
+    h = eval_plan(B, softplus_even_plan(bound, degree), x)
+    return B.add(h, B.mul_const(x, 0.5))
+
+
+@lru_cache(maxsize=None)
+def exp_neg_plan(bound: float = EXP_NEG_BOUND, degree: int = 12):
+    """Chebyshev plan of exp on [-bound, 0] (relative error 1e-13 at (2,
+    12))."""
+    from ..approx.remez import cheb_interp
+    p = cheb_interp(np.exp, -bound, 0.0, degree)
+    return make_plan(np.array([float(c) for c in p.coeffs]),
+                     float(p.lo), float(p.hi))
+
+
+def rescale_to_context(B, v):
+    """v × 1 through one rescale that lands its scale on the context's
+    (one level; nothing on the plain backends)."""
+    params = getattr(getattr(B, "ctx", None), "params", None)
+    return B.mul_const(v, 1.0, out_scale=params.scale if params else None)
+
+
+def exp_scaled(B, y, r: int, bound: float = EXP_NEG_BOUND,
+               degree: int = 12):
+    """exp(2^r·y) for y ∈ [-bound, 0]: a Chebyshev fit of exp on
+    [-bound, 0], then r squarings. Unlike ``exp``'s (1 + x/2^r)^(2^r),
+    whose base turns negative below x = −2^r, it holds on the whole
+    negative domain [−2^r·bound, 0], with relative error about 2^r times
+    the fit's. The caller folds the 2^-r into the operand.
+
+    A squaring squares the scale's offset from the chain's primes too
+    (scale²/q): on the logN = 15 composite chain, where a pair is up to
+    1.2% off 2^54, thirteen squarings would take the scale to 1e-18 of
+    Δ and the value into the noise. Every EXP_RESET squarings the scale is
+    brought back to the context's (``rescale_to_context``, a level each)."""
+    v = eval_plan(B, exp_neg_plan(bound, degree), y)
+    for i in range(r):
+        if i and i % EXP_RESET == 0:
+            v = rescale_to_context(B, v)
+        v = B.square(v)
+    return v
+
+
 def gelu_windows(B, x, gp: GeluPlans):
     """Reference-style piecewise GELU: window masks from three shifted sign
     evaluations (PolyApprox.cpp:336-504).
@@ -209,11 +303,12 @@ def inverse(B, x, iters: int = 9, prescale: float = 1e-3):
     return goldschmidt_inverse(B, num, d, iters)
 
 
-def taylor_rsqrt_seed(B, x, a: float):
+def taylor_rsqrt_seed(B, x, a: float, shift: float = 1.0):
     """Order-3 Taylor of 1/sqrt(x−1+...) around x=a — matches the
     reference's taylor_expand (IterApprox.cpp:69, iterations.py:5):
-    seed = (a−1)^(−1/2) + Σ_k c_k (a−1)^(−1/2−k) (x−a)^k / k!."""
-    am1 = a - 1.0
+    seed = (a−1)^(−1/2) + Σ_k c_k (a−1)^(−1/2−k) (x−a)^k / k!. `shift`
+    replaces the 1 (0: the Taylor polynomial of 1/sqrt(x) itself)."""
+    am1 = a - shift
     c = [
         am1 ** -0.5,
         -0.5 * am1 ** -1.5,
@@ -234,7 +329,12 @@ def newton_rsqrt(B, x, init: float, iters: int = 13):
     (compute_inv_sqrt / newton_iteration)."""
     y = taylor_rsqrt_seed(B, x, init)
     for _ in range(iters):
-        y2 = B.square(y)
-        t = B.add_const(B.mul_const(B.mul(x, y2), -0.5), 1.5)
-        y = B.mul(y, t)
+        y = newton_step(B, x, y)
     return y
+
+
+def newton_step(B, x, y):
+    """One Newton step of 1/sqrt(x): y(1.5 − 0.5·x·y²) (four levels)."""
+    y2 = B.square(y)
+    t = B.add_const(B.mul_const(B.mul(x, y2), -0.5), 1.5)
+    return B.mul(y, t)

@@ -28,11 +28,15 @@ host-precomputed plaintext vectors.
 The port's copy of ``fhe_gpt2_tpu/nn/layers.py``: numpy over the backend
 protocol of ``nn/backend.py``, unchanged but for the ``layer_norm`` span of
 ``utils/telemetry.py``, so on the port's backends it issues the same ops in
-the same order as the JAX package does on its own.
+the same order as the JAX package does on its own. Added for Granite 4.0-H
+(no JAX counterpart): RMSNorm (``rms_norm``, span ``rms_norm``) and
+``build_attn_plans``' score scale and optional biases, whose defaults are
+GPT-2's.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -184,8 +188,11 @@ def build_ln_plans(sh: GPT2Shapes, gamma: np.ndarray, beta: np.ndarray,
 
 
 def build_attn_plans(sh: GPT2Shapes, wq, bq, wk, bk, wv, bv, wo, bo,
-                     giant: Optional[int] = None) -> AttnPlans:
-    scale = 1.0 / np.sqrt(sh.dh)
+                     giant: Optional[int] = None,
+                     scale: Optional[float] = None) -> AttnPlans:
+    """Plans of the diagonal attention. `scale` multiplies the scores
+    (default 1/√dh); a bias of None is no bias (its add is left out)."""
+    scale = 1.0 / np.sqrt(sh.dh) if scale is None else scale
     # Fold the 1/√dh into W_q and its bias (free).
     specs = {
         "q": matmul_spec(np.asarray(wq) * scale, sh.act, "wq"),
@@ -215,11 +222,14 @@ def build_attn_plans(sh: GPT2Shapes, wq, bq, wk, bk, wv, bv, wo, bo,
     r, h = np.meshgrid(np.arange(sh.seq), np.arange(sh.heads), indexing="ij")
     ct, sl = sh.act.place(r.ravel(), (h * sh.dh).ravel())
     seg[ct, sl] = 1.0
+
+    def bias(b, f=1.0):
+        return None if b is None else expand_row_vector(sh, np.asarray(b) * f)
+
     return AttnPlans(
         q=plans["q"], k=plans["k"], v=plans["v"], o=plans["o"],
-        qb=expand_row_vector(sh, np.asarray(bq) * scale),
-        kb=expand_row_vector(sh, bk), vb=expand_row_vector(sh, bv),
-        ob=expand_row_vector(sh, bo), causal_zero=causal,
+        qb=bias(bq, scale), kb=bias(bk), vb=bias(bv), ob=bias(bo),
+        causal_zero=causal,
         keep_row=keep, spill_row=spill, seg_starts=seg)
 
 
@@ -271,6 +281,90 @@ def layer_norm(B, xs, sh: GPT2Shapes, ln: LnPlans):
         zn = B.mul(z, r)
         out.append(B.add_plain(B.mul_plain(zn, ln.gamma_sqrt_d[i]), ln.beta[i]))
     return out
+
+
+@dataclass
+class RmsPlans:
+    """An RMSNorm over rows of `cols` values (Granite 4.0-H's): x·w /
+    √(mean(x²) + eps), as x · rsqrt(m·(Σx² + cols·eps)) · √(m·cols) · w.
+    The power of two m brings the Newton operand to at most 8, where a
+    refresh can re-encode it; √(m·cols) is an exact integer multiply
+    (`root`, free) times a factor of at most √2 in the weight mask."""
+
+    weight: np.ndarray          # w·√(m·cols)/root in act layout
+    newton_init: float
+    newton_iters: int
+    m: float = 1.0
+    eps_add: float = 0.0        # cols·eps
+    root: int = 1
+
+    @property
+    def need(self) -> int:
+        """Levels the Newton rsqrt takes (seed 3, then 4 an iteration): its
+        operand is refreshed first unless that many are left."""
+        return 3 + 4 * self.newton_iters
+
+
+def rms_calibration(row_sums, cols: int, eps: float) -> tuple:
+    """(newton_init, m) for Σx² of the rows an RMSNorm will see (each row
+    once, over `cols` values): m the power of two bringing the largest
+    m·(Σx² + cols·eps) into (4, 8] (a refresh re-encodes values below
+    2^8 at Δ = 2^54), and the Newton seed at 1.25 times it
+    (``model.rowmax_newton_inits``' rule)."""
+    v = float(np.max(np.asarray(row_sums, dtype=float))) + cols * eps
+    m = 2.0 ** -math.ceil(math.log2(v / 8.0))
+    return 1.25 * m * v, m
+
+
+def build_rms_plans(sh, w: np.ndarray, eps: float, newton_init: float,
+                    iters: int, m: float = 1.0, cols: Optional[int] = None,
+                    groups: int = 1) -> RmsPlans:
+    """RMSNorm plans over `cols` (default sh.hidden, a power of two) values
+    a row, held as `groups` column groups of sh.hidden in act layout: the
+    weight mask is [groups, n_cts, slots] (groups > 1) or [n_cts, slots]."""
+    cols = cols or sh.hidden
+    d = sh.hidden
+    e = math.log2(m * cols)
+    if e != int(e):
+        raise ValueError("an RMSNorm's width and scale must be powers of two")
+    root = 1 << (int(e) // 2) if e >= 0 else 1
+    w = np.asarray(w, dtype=float) * (math.sqrt(m * cols) / root)
+    masks = [expand_row_vector(sh, w[g * d:(g + 1) * d])
+             for g in range(groups)]
+    return RmsPlans(weight=np.stack(masks) if groups > 1 else masks[0],
+                    newton_init=float(newton_init), newton_iters=int(iters),
+                    m=float(m), eps_add=float(cols * eps), root=root)
+
+
+def rms_rsqrt(B, sq, sh, rp: RmsPlans):
+    """root·rsqrt(m·(Σ_row sq + cols·eps)) at every data slot of each row,
+    from the squares sq of a batched act-layout value (zero outside the
+    data): the row sum broadcast by ``layer_norm``'s replicate-and-fold,
+    the operand refreshed unless the Newton iteration fits, then
+    ``kernels.newton_rsqrt``'s steps seeded by the Taylor polynomial of
+    1/√x."""
+    w = sh.stride // 2
+    rep = B.add(sq, B.rotate(sq, -w))
+    ss = K.fold_sum(B, rep, w)
+    xp = B.mul_const(B.add_const(ss, rp.eps_add), rp.m)
+    xp = B.maybe_bootstrap(xp, rp.need)
+    # The iterate is refreshed before a step that would reach the level
+    # floor (4 levels and the floor's headroom), once, where letting the
+    # floor refresh each operand on the way down would take three or more.
+    need = 4 + getattr(B, "min_level_headroom", 0)
+    y = K.taylor_rsqrt_seed(B, xp, rp.newton_init, shift=0.0)
+    for _ in range(rp.newton_iters):
+        y = K.newton_step(B, xp, B.maybe_bootstrap(y, need))
+    return B.mul_const(y, float(rp.root))
+
+
+@telemetry.traced("rms_norm")
+def rms_norm(B, xs, sh, rp: RmsPlans):
+    """RMSNorm of act-layout cts xs (zero outside the data slots), batched
+    over the list."""
+    x = B.stack(xs)
+    r = rms_rsqrt(B, B.square(x), sh, rp)
+    return B.unstack(B.mul_plain(B.mul(x, r), rp.weight))
 
 
 def _row_shift_stacks(B, x, sh: GPT2Shapes):

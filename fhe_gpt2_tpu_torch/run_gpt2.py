@@ -257,11 +257,13 @@ class Session:
     galois_keys: int
 
 
-def build_session(a, m: Model) -> Session:
+def build_session(a, m: Model, forward=None) -> Session:
     """Context, keys and backend of an encrypted run, on the device of
     ``device_of(a)``. The rotation set is recorded from one plain forward
     (and the decode steps under --decode), or is the base-16 digit set
-    under --digit-keys."""
+    under --digit-keys (and nothing is recorded). `forward(B, xs, plans)`
+    is the model's forward the rotations are recorded from (default
+    GPT-2's, ``nn/model.forward``)."""
     import torch
 
     from .core.context import CkksContext, CkksParams
@@ -272,8 +274,11 @@ def build_session(a, m: Model) -> Session:
 
     device = device_of(a)
     sh, plans = m.sh, m.plans
-    rec = RecordingBackend(sh.slots)
-    M.forward(rec, list(sh.act.pack(m.emb)), plans)
+    steps = set()
+    if not a.digit_keys:
+        rec = RecordingBackend(sh.slots)
+        (forward or M.forward)(rec, list(sh.act.pack(m.emb)), plans)
+        steps = set(rec.key_steps())
     if a.composite:
         params = CkksParams.create_composite(
             logn=a.logn, num_levels=a.levels, log_scale=a.log_scale,
@@ -292,7 +297,6 @@ def build_session(a, m: Model) -> Session:
     enc = Encryptor(ctx, secret=kg.secret, seed=2)
     dec = Decryptor(ctx, kg.secret)
     B = CkksBackend(ctx=ctx, ev=ev, enc=enc, dec=dec, default_level=levels)
-    steps = set(rec.key_steps())
     if a.real_boot:
         from .boot.bootstrap import Bootstrapper, make_evalmod
         eps = params.scale / ctx.q0_float
