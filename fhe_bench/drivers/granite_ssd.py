@@ -13,11 +13,11 @@ and each sequence's embedding rows from the seed (the configuration's
 RMSNorm(12·embedding) with the reference, builds the core's plans (the
 gated norm's Newton seed calibrated on the pool, ``nn/granite``'s rule),
 the session of the configuration's flags (``run_gpt2.build_session``:
-keys, the decrypt/re-encrypt refresh; rotations recorded from the core
-unless the flags ask for the digit keys), and encrypts each sequence's inputs
-at the level the mixer's refresh and in_proj leave
-(``granite.core_input_level``: neither is run). One warm-up request runs
-the core with its refreshes.
+the base-16 digit keys, the decrypt/re-encrypt refresh), and encrypts each
+sequence's inputs at the level the mixer's refresh and in_proj leave
+(``granite.core_input_level``: neither is run). Each sequence's SiLU and
+softplus inputs are held to the fits' range (``granite.check_act_domain``)
+first. One warm-up request runs the core with its refreshes.
 
 The check: ``ssd_gap``, the largest |answer − reference| over the
 answer's seq × inner values, against ``reference/granite.mixer_core``.
@@ -93,9 +93,10 @@ class Driver:
         cfg, seed, t = self.cfg, self.seed, self.traffic
         a = run_granite.parse_args(list(self.flags) + (
             ["--cpu"] if self.device == "cpu" else []))
-        if not a.composite or a.hidden != cfg["hidden_size"]:
-            raise ValueError("the Granite cell runs the composite chain at "
-                             "the configuration's hidden_size")
+        if (not a.composite or not a.digit_keys
+                or a.hidden != cfg["hidden_size"]):
+            raise ValueError("the Granite cell runs the composite chain with "
+                             "digit keys at the configuration's hidden_size")
         self.mcfg = m = {k: cfg[k] for k in KEYS}
         seq, pool = t["seq"], t["pool"]
         self.w = layer0_weights(seed, m)
@@ -105,6 +106,8 @@ class Driver:
         self.ins = [self.core_inputs(embedded(
             seed, i, m["hidden_size"], m["embedding_multiplier"]))
             for i in ids]
+        for k, x in enumerate(self.ins):
+            G.check_act_domain(f"sequence {k}", *G.core_act_inputs(*x, self.p))
         # The program's calibration: its gated norm's rows over the pool.
         gate = np.concatenate([
             (port_ref.gated_norm_input(*x, self.p, m) ** 2).sum(-1).numpy()
@@ -113,16 +116,10 @@ class Driver:
         self.plans = G.build_core_plans(
             sh, self.w, 0, m, gate, a.silu_degree, a.softplus_degree)
         self.core = Mb.mixer_core
-        model = Model(sh=sh, weights=self.w, ids=None,
-                      emb=np.zeros((seq, m["hidden_size"])),
-                      plans=self.plans, knobs=None, want=None, plans_s=0.0)
-        def record(B, xs, plans):
-            """The core on a recording backend, for its rotations."""
-            ins = Mb.pack_core_inputs(sh, *self.ins[0])
-            Mb.mixer_core(B, *(Mb.encrypt_groups(B, v) for v in ins), sh,
-                          plans)
-
-        s = build_session(a, model, forward=record)
+        # Under the digit keys the session reads only the shapes.
+        s = build_session(a, Model(sh=sh, weights=None, ids=None, emb=None,
+                                   plans=None, knobs=None, want=None,
+                                   plans_s=0.0))
         self.ses = Session(a=a, ctx=s.ctx, B=s.B, keygen_s=s.keygen_s,
                            galois_keys=s.galois_keys)
         B = s.B

@@ -22,7 +22,8 @@ CELL = "granite4h.ssd16"
 TINY = {"hidden_size": 64, "mamba_n_heads": 16, "mamba_d_head": 8,
         "mamba_d_state": 8, "vocab_size": 997}
 TINY_FLAGS = ["--seq", "8", "--hidden", "64", "--composite", "--logn", "10",
-              "--levels", "10", "--log-scale", "54", "--nsp", "4"]
+              "--levels", "10", "--log-scale", "54", "--nsp", "4",
+              "--digit-keys"]
 SEED = 3000000019
 
 

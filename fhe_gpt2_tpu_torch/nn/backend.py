@@ -309,6 +309,16 @@ class CkksBackend:
         return self._cached_plain("ext", v, level, scale, lambda: (
             self.ev.make_plain_ext(np.asarray(v).ravel(), scale, level)))
 
+    def release_masks(self, masks) -> None:
+        """Drop the cached plaintexts of the mask arrays `masks` (at every
+        level, scale and basis), giving their device memory back: for masks
+        read once, such as a projection block's (``granite.BlockMatmul``)."""
+        ids = {id(v) for v in masks}
+        for key in [k for k, v in self._keepalive.items() if id(v) in ids]:
+            del self._keepalive[key]
+            gone = self._plain_cache.pop(key)
+            self._cache_bytes -= gone.data.numel() * gone.data.element_size()
+
     def release_caches(self) -> None:
         """Drop every cached plaintext, every per-level key slice of the
         evaluator's keys and the sealed programs of the segment drivers and

@@ -24,8 +24,8 @@ MLP's when fewer levels are left than they take, the rest where the level
 floor asks.
 
 The projections of a layer at published widths hold 16,380 diagonal masks
-per 2048 × 2048 block: ``BlockMatmul(keep=False)`` builds each block's plan
-when it runs and drops it after.
+per 2048 × 2048 block: ``BlockMatmul`` builds each block's plan when it
+runs and releases its masks after.
 """
 
 from __future__ import annotations
@@ -166,40 +166,40 @@ def attn_shapes(cfg: dict, slots: int, seq: int) -> L.GPT2Shapes:
 class BlockMatmul:
     """x @ W for W [groups_in·d, groups_out·d] over column groups of d =
     layout.cols in the act layout: block (ko, co) is one LT plan
-    (``formats.matmul_spec``), built on its first use and kept, or, with
-    keep=False, built for each use and dropped (published widths)."""
+    (``formats.matmul_spec``), built when it runs, its masks released from
+    the backend's cache after it. A 2048 × 2048 block holds 16,380
+    diagonal masks, and a Mamba-2 layer's projections 22 blocks: kept,
+    they would not fit the card beside the mixer's values."""
 
-    def __init__(self, W: np.ndarray, layout, name: str, keep: bool = True):
+    def __init__(self, W: np.ndarray, layout, name: str):
         d = layout.cols
         if W.shape[0] % d or W.shape[1] % d:
             raise ValueError(f"{name}: {W.shape} is not in blocks of {d}")
-        self.W, self.layout, self.name, self.keep = W, layout, name, keep
+        self.W, self.layout, self.name = W, layout, name
         self.k_in, self.k_out = W.shape[0] // d, W.shape[1] // d
-        self._plans: dict = {}
 
     def plan(self, ko: int, co: int):
-        p = self._plans.get((ko, co))
-        if p is None:
-            d = self.layout.cols
-            blk = self.W[ko * d:(ko + 1) * d, co * d:(co + 1) * d]
-            p = matmul_spec(blk, self.layout,
-                            f"{self.name}[{ko},{co}]").bsgs_plan()
-            if self.keep:
-                self._plans[(ko, co)] = p
-        return p
+        d = self.layout.cols
+        blk = self.W[ko * d:(ko + 1) * d, co * d:(co + 1) * d]
+        return matmul_spec(blk, self.layout,
+                           f"{self.name}[{ko},{co}]").bsgs_plan()
 
     def apply(self, B, groups: list) -> list:
         """groups[ko]: the n cts of input group ko; returns the output
         groups' cts, summed over the input groups (an all-zero block has
         no diagonal and is left out)."""
         d = self.layout.cols
+        release = getattr(B, "release_masks", None)
         out = []
         for co in range(self.k_out):
             acc = None
             for ko in range(self.k_in):
                 if not self.W[ko * d:(ko + 1) * d, co * d:(co + 1) * d].any():
                     continue
-                y = apply_lt(B, self.plan(ko, co), groups[ko])
+                p = self.plan(ko, co)
+                y = apply_lt(B, p, groups[ko])
+                if release is not None:
+                    release(p.masks())
                 acc = y if acc is None else [B.add(a, b)
                                              for a, b in zip(acc, y)]
             out.append(acc)
@@ -267,10 +267,31 @@ class Calibration:
     final: np.ndarray
 
 
+def check_act_domain(name: str, *values) -> None:
+    """Raise ValueError where a SiLU or softplus input of the float forward
+    leaves ±``kernels.ACT_BOUND``, the interval their polynomials are
+    fitted on: outside it the fits' error grows fast, and nothing on the
+    encrypted side shows it."""
+    top = max(float(np.abs(np.asarray(v)).max()) for v in values)
+    if top > K.ACT_BOUND:
+        raise ValueError(f"{name}: a SiLU or softplus input reaches {top:.3g},"
+                         f" outside the fits' ±{K.ACT_BOUND}")
+
+
+def core_act_inputs(z, xbc, dt_raw, p: dict) -> tuple:
+    """The mixer core's SiLU and softplus inputs in float64 from in_proj's
+    outputs: z (the gate), the causal conv's output, dt_raw + dt_bias."""
+    from ..reference import granite as R
+    return (np.asarray(z),
+            R.causal_conv(xbc, p["conv1d.weight"], p["conv1d.bias"]).numpy(),
+            np.asarray(dt_raw) + np.asarray(p["dt_bias"]))
+
+
 def calibrate(w: dict, cfg: dict, x: np.ndarray, layers=None) -> Calibration:
     """The float forward of ``reference/granite.py`` over the embedded
     input x [S, hidden] through `layers` (default all), recording what the
-    plans calibrate on."""
+    plans calibrate on; every SiLU and softplus input is held to
+    ``check_act_domain``."""
     import torch
 
     from ..reference import granite as R
@@ -289,7 +310,10 @@ def calibrate(w: dict, cfg: dict, x: np.ndarray, layers=None) -> Calibration:
                 "conv1d.weight", "conv1d.bias", "dt_bias", "A_log", "D",
                 "norm.weight")}
             proj = u @ R.weight(w, m + "in_proj.weight").T
-            v = R.gated_norm_input(*R.split_in_proj(proj, cfg), pm, cfg)
+            core_in = [t.numpy() for t in R.split_in_proj(proj, cfg)]
+            check_act_domain(f"layer {i}'s mixer",
+                             *core_act_inputs(*core_in, pm))
+            v = R.gated_norm_input(*core_in, pm, cfg)
             out.gate.append((v * v).sum(-1).numpy())
             out.scores.append(None)
         else:
@@ -297,6 +321,10 @@ def calibrate(w: dict, cfg: dict, x: np.ndarray, layers=None) -> Calibration:
             out.scores.append(attention_scores(w, i, cfg, u.numpy()))
         h = R.mixer_sublayer(x, w, i, cfg)
         out.ln2.append((h * h).sum(-1).numpy())
+        u = R.rms_norm(h, R.weight(w, p + "post_attention_layernorm.weight"),
+                       eps)
+        gv = u @ R.weight(w, p + "shared_mlp.input_linear.weight").T
+        check_act_domain(f"layer {i}'s MLP", gv.chunk(2, dim=-1)[0].numpy())
         x = R.mlp_sublayer(h, w, i, cfg)
     out.final = (x * x).sum(-1).numpy()
     return out
@@ -361,13 +389,10 @@ def build_core_plans(sh: Mb.MambaShapes, w: dict, i: int, cfg: dict,
 
 
 def build_granite_plans(cfg: dict, w: dict, slots: int, seq: int,
-                        cal: Calibration, layers=None,
-                        keep: bool = True, silu_degree: int = 56,
+                        cal: Calibration, layers=None, silu_degree: int = 56,
                         softplus_degree: int = 48) -> GranitePlans:
     """Plans of `layers` (default all) from the HF-format state dict w and
-    the float forward's calibration (``calibrate`` over the same layers).
-    keep=False builds the projections' LT plans per use (published
-    widths)."""
+    the float forward's calibration (``calibrate`` over the same layers)."""
     sh, ash = mamba_shapes(cfg, slots, seq), attn_shapes(cfg, slots, seq)
     d, r = cfg["hidden_size"], cfg["residual_multiplier"]
     todo = list(range(cfg["num_hidden_layers"]) if layers is None
@@ -387,20 +412,20 @@ def build_granite_plans(cfg: dict, w: dict, slots: int, seq: int,
                      cfg),
             ln2=_rms(sh, get(w, p + "post_attention_layernorm.weight"),
                      cal.ln2[j], cfg),
-            mlp_in=BlockMatmul(w_mlp, sh.act, f"l{i}.mlp_in", keep),
+            mlp_in=BlockMatmul(w_mlp, sh.act, f"l{i}.mlp_in"),
             mlp_out=BlockMatmul(
                 r * get(w, p + "shared_mlp.output_linear.weight").T,
-                sh.act, f"l{i}.mlp_out", keep),
+                sh.act, f"l{i}.mlp_out"),
             mlp_need=mlp_need)
         assert I % d == 0
         if kind == "mamba":
             m = p + "mamba."
             lp.in_proj = BlockMatmul(in_proj_columns(cfg, get(
-                w, m + "in_proj.weight")), sh.act, f"l{i}.in_proj", keep)
+                w, m + "in_proj.weight")), sh.act, f"l{i}.in_proj")
             lp.core = build_core_plans(sh, w, i, cfg, cal.gate[j],
                                        silu_degree, softplus_degree)
             lp.out_proj = BlockMatmul(r * get(w, m + "out_proj.weight").T,
-                                      sh.act, f"l{i}.out_proj", keep)
+                                      sh.act, f"l{i}.out_proj")
         else:
             a = p + "self_attn."
             Hq, Hkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]

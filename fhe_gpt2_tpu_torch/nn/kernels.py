@@ -157,7 +157,8 @@ def gelu(B, x, bound: float = 8.0, degree: int = 46):
 
 
 # The input range of silu and softplus (Granite 4.0-H's inputs to them stay
-# within ±5 at N(0, 0.02) weights), and the fit interval [-bound, 0] of
+# within ±5 at N(0, 0.02) weights; its calibration holds them to the range,
+# granite.check_act_domain), and the fit interval [-bound, 0] of
 # exp_scaled's polynomial.
 ACT_BOUND = 8.0
 EXP_NEG_BOUND = 2.0

@@ -89,6 +89,11 @@ class BsgsPlan:
                 out |= {i for (i, _, _) in terms}
         return sorted(out)
 
+    def masks(self) -> list:
+        """Every premask of the plan."""
+        return [m for g in self.groups.values() for terms in g.values()
+                for (_, _, m) in terms]
+
     def num_rotations(self) -> int:
         return (len([a for a in self.baby_amounts if a]) +
                 sum(1 for jg, g in self.groups.items() if jg for _ in g))

@@ -27,12 +27,16 @@ on the 80-limb chain is
     python -m fhe_gpt2_tpu_torch.run_granite --layers 1 --hidden 2048 \\
         --composite --logn 15 --levels 39 --log-scale 54 --nsp 16 \\
         --digit-keys
+
+(on an H100 790 s and a peak of 57 GB: ``tools/granite_layers.py`` runs
+it through these functions and writes its numbers).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -73,6 +77,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     # run_gpt2.build_session reads these; Granite runs neither.
     ap.set_defaults(real_boot=False, decode=0)
     return ap.parse_args(argv)
+
+
+def allocator_setting() -> None:
+    """The CUDA allocator's segments grow in place: the mixer core's
+    batched values are GiB each, and between them a projection block's
+    masks come and go (``granite.BlockMatmul``), which fragments fixed
+    segments past the card's 80 GB at published widths. Call it before
+    the first allocation on the card."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
 
 
 def model_config(a) -> dict:
@@ -135,6 +149,7 @@ def encrypted_forward(ses, m) -> np.ndarray:
 def main(argv=None):
     from .run_gpt2 import device_of
 
+    allocator_setting()
     a = parse_args(argv)
     device_of(a)
     if not a.trace:

@@ -111,3 +111,23 @@ def test_gqa_attention(model):
                                             xs)]
     got = _encrypted(gp, fn, x)
     assert np.abs(got - want).max() < ATTN_TOL
+
+
+def test_projection_releases_its_masks(model):
+    """A projection runs block by block and leaves none of its masks in the
+    backend's cache (a layer's do not fit the card at published widths),
+    and gives x @ W within the CKKS noise of one LT at Δ ≈ 2^54 (2e-14
+    seen on outputs ~0.1)."""
+    w, x, gp = model
+    proj = gp.layers[0].mlp_in
+    rec = RecordingBackend(SLOTS)
+    proj.apply(rec, [list(gp.sh.act.pack(x))])
+    B = backend(rec.key_steps())
+    out = proj.apply(B, [[B.from_slots(v) for v in gp.sh.act.pack(x)]])
+    assert not B._plain_cache and B._cache_bytes == 0
+    d = CFG["hidden_size"]
+    for co in (0, proj.k_out - 1):
+        got = gp.sh.act.unpack(np.stack([decrypt_all(B, o)
+                                         for o in out[co]]))
+        want = x @ proj.W[:, co * d:(co + 1) * d]
+        assert np.abs(got - want).max() < 1e-12

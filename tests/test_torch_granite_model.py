@@ -55,6 +55,25 @@ def test_period_lower_degree_fails(period):
     assert np.abs(got - want).max() > TOL
 
 
+@pytest.mark.parametrize("name,value,where", [
+    ("layers.0.mamba.conv1d.bias", 9.0, "layer 0's mixer"),
+    ("layers.0.mamba.dt_bias", 9.0, "layer 0's mixer"),
+    ("layers.0.shared_mlp.input_linear.weight", 10.0, "layer 0's MLP")])
+def test_calibration_holds_activation_domain(name, value, where):
+    """A SiLU or softplus input of the float forward outside the fits'
+    ±ACT_BOUND stops the calibration: a conv output (bias 9), a softplus
+    step (dt_bias 9), an MLP gate (weights N(0, 10), rows ~57)."""
+    w, x = case(3)
+    G.calibrate(w, CFG, x, layers=[0])
+    w = dict(w)
+    if name.endswith("input_linear.weight"):
+        w[name] = np.random.default_rng(0).normal(0, value, w[name].shape)
+    else:
+        w[name] = np.full_like(w[name], value)
+    with pytest.raises(ValueError, match=where):
+        G.calibrate(w, CFG, x, layers=[0])
+
+
 def test_hf_state_dict():
     """``model.``-prefixed torch tensors (a GraniteMoeHybridForCausalLM's
     state dict) give the plans the bare numpy dict gives."""

@@ -1,34 +1,37 @@
 #!/usr/bin/env python3
 """Granite 4.0-H Micro's two layer kinds once each at published widths,
-encrypted, against the float64 reference over the same 16 tokens.
+encrypted, against the float64 reference over the same 16 tokens, through
+``run_granite``'s own functions.
 
     python3 tools/granite_layers.py [--which mamba,attention] \\
         [--out build/granite_layers.json] [--cpu --hidden 64 \\
-        --logn 10 --levels 39]
+        --logn 10 --levels 12 --nsp 4]
 
-1. ``mamba``: the whole of layer 0 (a Mamba-2 layer): RMSNorm, in_proj,
-   the mixer core, out_proj, the residual, RMSNorm, the SwiGLU MLP, the
-   residual (``nn/granite.layer``).
-2. ``attention``: layer 5's attention half-layer: RMSNorm, grouped-query
-   attention (32 query heads over 8 K/V heads, scale 1/64), the residual.
+1. ``mamba``: the entry point's run of one layer (``run_granite --layers
+   1``: ``load_model``, ``build_session``, ``encrypted_forward``): layer
+   0, a Mamba-2 layer (RMSNorm, in_proj, the mixer core, out_proj, the
+   residual, RMSNorm, the SwiGLU MLP, the residual), then the final
+   RMSNorm.
+2. ``attention``: layer 5's attention half-layer (RMSNorm, grouped-query
+   attention with 32 query heads over 8 K/V heads and scale 1/64, the
+   residual), from layer 5's plans alone
+   (``granite.build_granite_plans(layers=[5])``) on the same session.
 
-Both take the embedded tokens (× 12) as their input, on the session of
-``run_granite``'s published flags (logN = 15, 39 composite pairs at 2^54,
-16 special primes, digit keys, the decrypt/re-encrypt refresh). The
-projections' LT plans are built per block and dropped
-(``BlockMatmul(keep=False)``): one 2048 × 2048 block holds 16,380
-diagonals, and the backend's mask cache is emptied after each projection.
-Writes, after each phase, one JSON object to --out: the card's
-name and power limit, and per layer the seconds, the peak device memory,
-the largest |answer − reference| and the reference's largest value, and
-the blocks and refreshes it ran. Without --cpu it needs the card.
+Both take the embedded tokens (× 12) of ``run_granite`` (weights and ids
+from seed 0) as their input, on the session of ``run_granite``'s
+published flags (logN = 15, 39 composite pairs at 2^54, 16 special
+primes, digit keys, the decrypt/re-encrypt refresh). Writes, after each
+phase, one JSON object to --out: the card's name and power limit, and
+per phase the seconds, the peak device memory, the largest |answer −
+reference| and the reference's largest value, and the refreshes it ran
+with their levels (the recorder's ``refresh`` spans). Without --cpu it
+needs the card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import os
 import subprocess
 import sys
 import time
@@ -60,100 +63,74 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=str(REPO / "build"
                                          / "granite_layers.json"))
     a, rest = ap.parse_known_args(argv)
+    from fhe_gpt2_tpu_torch import run_granite
+    run_granite.allocator_setting()
     import torch
 
-    from fhe_gpt2_tpu_torch import run_granite
     from fhe_gpt2_tpu_torch.nn import granite as G
     from fhe_gpt2_tpu_torch.reference import granite as R
-    from fhe_gpt2_tpu_torch.run_gpt2 import Model
+    from fhe_gpt2_tpu_torch.utils import telemetry
 
-    ga = run_granite.parse_args(PUBLISHED_FLAGS + rest)
+    ga = run_granite.parse_args(PUBLISHED_FLAGS + rest + ["--layers", "1"])
     cuda = not ga.cpu
-    cfg = run_granite.model_config(ga)
-    cfg.update(num_hidden_layers=6, layer_types=(
-        G.PUBLISHED["layer_types"][:6] if ga.hidden == 2048 else
-        ["mamba"] * 5 + ["attention"]))
-    w = G.synthetic_weights(np.random.default_rng(0), cfg, layers=[0, 5])
-    ids = np.random.default_rng(0).integers(0, run_granite.VOCAB, ga.seq)
-    x = G.get(w, "embed_tokens.weight")[ids] * cfg["embedding_multiplier"]
-    slots = 1 << (ga.logn - 1)
     out = {"card": card(), "flags": PUBLISHED_FLAGS + rest, "layers": {}}
 
     def save():
         Path(a.out).parent.mkdir(parents=True, exist_ok=True)
         Path(a.out).write_text(json.dumps(out, indent=1) + "\n")
 
-    t0 = time.perf_counter()
-    plans = {i: G.build_granite_plans(
-        cfg, w, slots, ga.seq, G.calibrate(w, cfg, x, layers=[i]),
-        layers=[i], keep=False) for i in (0, 5)}
-    out["plans_s"] = time.perf_counter() - t0
-    m = Model(sh=plans[0].sh, weights=w, ids=ids, emb=x, plans=plans[0],
-              knobs=None, want=None, plans_s=out["plans_s"])
-    t0 = time.perf_counter()
-    ses = run_granite.build_session(ga, m)
-    out["session_s"] = time.perf_counter() - t0
-    B, sh = ses.B, plans[0].sh
-    save()
-
-    blocks, refreshes = [], []
-    plan_of, apply_of = G.BlockMatmul.plan, G.BlockMatmul.apply
-
-    def counted_plan(self, ko, co):
-        blocks.append(self.name)
-        print(f"# {time.strftime('%H:%M:%S')} block {self.name} "
-              f"[{ko},{co}]", flush=True)
-        return plan_of(self, ko, co)
-    G.BlockMatmul.plan = counted_plan
-
-    def apply_and_release(self, B_, groups):
-        # A projection's masks are used once here: drop them from the
-        # backend's cache (up to 16 GiB) before the core needs the card.
-        out = apply_of(self, B_, groups)
-        B_.release_caches()
-        return out
-    G.BlockMatmul.apply = apply_and_release
-    boot = B.bootstrap
-
-    def counted_boot(v, **kw):
-        refreshes.append(v.level)
-        return boot(v, **kw)
-    B.bootstrap = counted_boot
-
     def sync():
         if cuda:
             torch.cuda.synchronize()
 
-    xt = torch.as_tensor(x)
-    runs = {
-        "mamba": (lambda xs: G.layer(B, xs, plans[0], plans[0].layers[0]),
-                  lambda: R.layer(xt, w, 0, cfg)),
-        "attention": (lambda xs: G.mixer_sublayer(B, xs, plans[5],
-                                                  plans[5].layers[0]),
-                      lambda: R.mixer_sublayer(xt, w, 5, cfg)),
-    }
+    t0 = time.perf_counter()
+    m = run_granite.load_model(ga)
+    out["plans_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ses = run_granite.build_session(ga, m)
+    out["session_s"] = time.perf_counter() - t0
+    B, sh = ses.B, m.sh
+    save()
+
+    def attention():
+        ga6 = run_granite.parse_args(PUBLISHED_FLAGS + rest
+                                     + ["--layers", "6"])
+        cfg = run_granite.model_config(ga6)
+        w = G.synthetic_weights(np.random.default_rng(0), cfg, layers=[5])
+        gp = G.build_granite_plans(cfg, w, sh.slots, ga.seq, G.calibrate(
+            w, cfg, m.emb, layers=[5]), layers=[5])
+        xs = [B.from_slots(v) for v in sh.act.pack(m.emb)]
+        sync()
+        t = time.perf_counter()
+        got = G.mixer_sublayer(B, xs, gp, gp.layers[0])
+        sync()
+        seconds = time.perf_counter() - t
+        got = sh.act.unpack(np.stack([B.to_slots(o) for o in got]))
+        return seconds, got, R.mixer_sublayer(torch.as_tensor(m.emb), w, 5,
+                                              cfg).numpy()
+
+    def mamba():
+        sync()
+        t = time.perf_counter()
+        got = run_granite.encrypted_forward(ses, m)
+        return time.perf_counter() - t, got, m.want
+
+    runs = {"mamba": mamba, "attention": attention}
     for name in a.which.split(","):
-        fn, want_fn = runs[name]
-        blocks.clear()
-        refreshes.clear()
         if cuda:
             torch.cuda.reset_peak_memory_stats()
-        xs = [B.from_slots(v) for v in sh.act.pack(x)]
-        sync()
-        t0 = time.perf_counter()
-        got = fn(xs)
-        sync()
-        seconds = time.perf_counter() - t0
-        got = sh.act.unpack(np.stack([B.to_slots(o) for o in got]))
-        want = want_fn().numpy()
+        mark = telemetry.mark()
+        with telemetry.enable(only=("refresh",)):
+            seconds, got, want = runs[name]()
+        levels = [s.level for s in telemetry.spans_since(mark)
+                  if s.name == "refresh"]
         out["layers"][name] = {
             "seconds": seconds,
             "peak_bytes": int(torch.cuda.max_memory_allocated()) if cuda
             else 0,
             "max_gap": float(np.abs(got - want).max()),
             "reference_max": float(np.abs(want).max()),
-            "blocks": len(blocks), "refreshes": len(refreshes),
-            "refresh_levels": refreshes[:64]}
+            "refreshes": len(levels), "refresh_levels": levels[:64]}
         print(json.dumps({name: out["layers"][name]}), flush=True)
         save()
         B.release_caches()
@@ -161,8 +138,4 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    os.environ.setdefault("USE_JAX", "0")
-    # The core's batched values are GiB each; segments that grow keep the
-    # allocator's cache from fragmenting between the projections and it.
-    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     sys.exit(main())
