@@ -18,8 +18,15 @@ Phases (any failed check exits non-zero and prints no result):
              MAC kernel (csrc/mac.cu: hoisted key product, lifted c0,
              masked sum) against its plain versions at the served ResNet
              bootstrap's widths, with its ms, device ms and bound there
-             (``mac_kernels``); from phase 6 on, hold_path_to_plain holds
-             its three wrappers as it holds the four kernels;
+             (``mac_kernels``); then the dyadic kernel (csrc/dyadic.cu:
+             tensor product, products, adds with a ciphertext's other
+             components copied, batch sums) against its plain versions at
+             the bootstrap's widths and at a 128-ciphertext Granite batch,
+             with ms, device ms, bound and the wrapper's host us beside the
+             plain version's at gpt2s.ln1's shapes (``dyadic_kernels``);
+             from phase 6 on, hold_path_to_plain holds the MAC kernel's
+             three wrappers and the dyadic kernel's six as it holds the
+             four kernels;
   3. main    the production uint32 chain (logN=15, 22 limbs, alpha=8
              special primes, h=192): keygen (relin, Galois steps 1/2/4/8 and
              conjugation, public key), then requests that encode, encrypt,
@@ -303,6 +310,12 @@ SOURCES = {
 # _cuda.LAUNCHES["mac"].
 MAC_SOURCE = "fhe_gpt2_tpu_torch/csrc/mac.cu"
 MAC_WRAPPERS = ("hoisted_mac", "add_lifted", "masked_sum")
+# The dyadic kernel (csrc/dyadic.cu, no TPU counterpart): its six wrappers
+# (core/tdyadic.py), held to their plain versions under these names; its
+# launches count under _cuda.LAUNCHES["dyadic"].
+DYADIC_SOURCE = "fhe_gpt2_tpu_torch/csrc/dyadic.cu"
+DYADIC_WRAPPERS = ("tensor_product", "mul_mod", "add_mod", "sub_mod",
+                   "neg_mod", "mod_sum")
 
 
 def log(msg: str) -> None:
@@ -384,9 +397,12 @@ def _trace(torch, fn, reps: int, pad, expected=None):
                              ProfilerActivity.CUDA]) as prof:
         # The tracer can drop the first device events of a trace (on the
         # H100 it dropped up to six kernels, the first after a long
-        # untraced run, and once the marker itself): one more call of fn
-        # (or pad) pads the start, and a spin kernel marks where the
-        # counted calls begin.
+        # untraced run, and at times the marker itself): sixteen small
+        # kernels and one more call of fn (or pad) pad the start, and a
+        # spin kernel marks where the counted calls begin.
+        x = torch.zeros(1, device="cuda")
+        for _ in range(16):
+            x.add_(1)
         (pad or fn)()
         torch.cuda.synchronize()
         torch.cuda._sleep(SPIN_CYCLES)
@@ -494,7 +510,8 @@ def run() -> dict:
         f"{len(ctx.key_limbs(L))}; composite L={cctx.L} k={cctx.k_sp}")
     rng = np.random.default_rng(7)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    kern = {k: {"max_abs_err": 0} for k in (*REPLACES, *MAC_WRAPPERS)}
+    kern = {k: {"max_abs_err": 0}
+            for k in (*REPLACES, *MAC_WRAPPERS, *DYADIC_WRAPPERS)}
 
     def timed(name, fn, plain, iters, plain_iters):
         # ms: CUDA events over a loop of calls, which includes the host's
@@ -672,6 +689,7 @@ def run() -> dict:
         4.0 * (2 * (L + k) * n + 2 * L * n) + (b_i - 8.0 * 2 * k * n)
         + (b_f - 8.0 * 2 * L * n), muls)
     mac = mac_kernels(torch, timer, same, rng, sms)
+    dyadic = dyadic_kernels(torch, timer, same, rng)
     for name in REPLACES:
         log(f"kernel {name}: equal to plain; {kern[name]['ms']:.4f} ms "
             f"(device {kern[name]['device_ms']:.4f} ms, plain "
@@ -890,6 +908,28 @@ def run() -> dict:
                  "library_ms": None,
                  "device_ms": mac["hoisted_mac"]["device_ms"],
                  "entries": mac})
+    dy = dyadic["tensor_product"]
+    rows.append({"name": "dyadic", "route": "cuda", "source": DYADIC_SOURCE,
+                 "replaces": None,
+                 "launches": ph["main"]["launches"]["dyadic"],
+                 "launches_per_bootstrap": boot["launches"]["dyadic"],
+                 "launches_per_resnet_image": net["launches"]["dyadic"],
+                 "launches_per_pir_request": pir["launches"]["dyadic"],
+                 "launches_per_gpt2_block": gpt["block_launches"]["dyadic"],
+                 "launches_u64": u64["launches"]["dyadic"],
+                 "launches_mesh_step": mesh["step_launches"]["dyadic"],
+                 "launches_per_mesh_bootstrap":
+                     mesh["boot_launches"]["dyadic"],
+                 "launches_sealed_capture":
+                     sealed["unit"]["capture_launches"]["dyadic"],
+                 "replay_kernels_unit": None,
+                 "replay_kernels_bootstrap": None,
+                 "max_abs_err": max(kern[w]["max_abs_err"]
+                                    for w in DYADIC_WRAPPERS),
+                 "ms": dy["ms"], "plain_ms": dy["plain_ms"],
+                 "bound_ms": dy["bound_ms"], "bound_by": dy["bound_by"],
+                 "library_ms": None, "device_ms": dy["device_ms"],
+                 "entries": dyadic})
     result["kernels"] = rows
     result["script_s"] = time.perf_counter() - t_script
     log(f"chip_smoke: {result['script_s']:.1f} s from the first import of "
@@ -981,15 +1021,128 @@ def mac_kernels(torch, timer, same, rng, sms) -> dict:
     return out
 
 
+def dyadic_kernels(torch, timer, same, rng) -> dict:
+    """Phase 2's dyadic kernel (csrc/dyadic.cu): each wrapper torch.equal to
+    its plain version at the served ResNet bootstrap's widths (logN=15,
+    one ciphertext at 48 rows) and at the Granite cell's batch (2 x 128
+    ciphertexts at 50 rows), on canonical and on lazy words in [0, 2q);
+    then at the Granite batch ms (CUDA events), device ms (torch.profiler),
+    device kernels per call, plain ms and the bound; and at gpt2s.ln1's
+    shapes (2 ciphertexts at 80 rows) the host us of a wrapper call beside
+    the plain version's (enqueue time: the card is not waited on). Returns
+    {entry: numbers}."""
+    from fhe_gpt2_tpu_torch.core import ntt as nttmod, primes, tdyadic as T
+    from fhe_gpt2_tpu_torch.core.modmath import word_tensor
+    n = 1 << 15
+
+    def tables(rows):
+        return nttmod.make_ntt_tables(
+            primes.gen_primes_balanced(27, rows, 2 * n), n, "cuda")
+
+    def words(t, lead, lazy=False):
+        mods = [(2 if lazy else 1) * q for q in t.moduli]
+        return residues(torch, rng, mods, lead, n, word_tensor)
+
+    def const(t):
+        return word_tensor(np.array([rng.integers(0, q) for q in t.moduli],
+                                    dtype=np.uint64)[:, None], "cuda")
+
+    def cases(t, lead, lazy=False):
+        """{entry: (wrapper, call, plain call, bytes, multiplies)} on
+        ciphertexts [2, *lead, l, N]: P words a component, a plaintext or
+        a constant of l rows. Bytes: each operand word read once, each
+        output word written once; multiplies: two 32-bit ones per 64-bit
+        product, five per reduction."""
+        a, b = words(t, (2, *lead), lazy), words(t, (2, *lead), lazy)
+        p, c = words(t, ()), const(t)
+        P = a[0].numel()
+        ln = p.numel()
+        out = {
+            "tensor_product": ("tensor_product",
+                               lambda: T.tensor_product(a, b, t),
+                               lambda: T.tensor_product_plain(a, b, t),
+                               4.0 * 7 * P, 23 * P),
+            "square": ("tensor_product", lambda: T.tensor_product(a, a, t),
+                       lambda: T.tensor_product_plain(a, a, t),
+                       4.0 * 5 * P, 21 * P),
+            "mul_plain": ("mul_mod", lambda: T.mul_mod(a, p, t),
+                          lambda: T.mul_mod_plain(a, p, t),
+                          4.0 * (4 * P + ln), 14 * P),
+            "mul_const": ("mul_mod", lambda: T.mul_mod(a, c, t),
+                          lambda: T.mul_mod_plain(a, c, t),
+                          4.0 * 4 * P, 14 * P),
+            "add_plain": ("add_mod",
+                          lambda: T.add_mod(a[0], p, t, rest=a[1:]),
+                          lambda: T.add_mod_plain(a[0], p, t, rest=a[1:]),
+                          4.0 * (4 * P + ln), 0),
+            "add": ("add_mod", lambda: T.add_mod(a, b, t),
+                    lambda: T.add_mod_plain(a, b, t), 4.0 * 6 * P, 0),
+            "sub": ("sub_mod", lambda: T.sub_mod(a, b, t),
+                    lambda: T.sub_mod_plain(a, b, t), 4.0 * 6 * P, 0),
+            "neg": ("neg_mod", lambda: T.neg_mod(a, t),
+                    lambda: T.neg_mod_plain(a, t), 4.0 * 4 * P, 0)}
+        if lead:
+            m = P // ln                      # the summed axis
+            out["mod_sum"] = ("mod_sum", lambda: T.mod_sum(a, t, axis=1),
+                              lambda: T.mod_sum_plain(a, t, axis=1),
+                              4.0 * (2 * P + 2 * P // m), 10 * P // m)
+        return out
+
+    t48, t50, t80 = tables(48), tables(50), tables(80)
+    for t, lead, label in ((t48, (), "bootstrap [2,48,N]"),
+                           (t50, (128,), "Granite [2,128,50,N]")):
+        for lazy in (False, True):
+            for name, (w, fn, plain, _, _) in cases(t, lead, lazy).items():
+                same(w, fn(), plain(), f"{label} {name}"
+                     + (" lazy" if lazy else ""))
+                torch.cuda.empty_cache()
+    out = {}
+    for name, (w, fn, plain, nbytes, muls) in cases(t50, (128,)).items():
+        prof = profile_chain(torch, fn, 10)
+        k = out[name] = {"shape": "[2,128,50,N]", "ms": timer(fn, iters=10),
+                         "plain_ms": timer(plain, iters=2),
+                         "device_ms": prof["device_ms"],
+                         "kernels_per_call": round(prof["launches"])}
+        k["bound_ms"], k["bound_by"] = bound(nbytes, muls)
+        check(k["kernels_per_call"] == 1,
+              f"dyadic {name}: {k['kernels_per_call']} device kernels a call")
+        torch.cuda.empty_cache()
+
+    def host_us(fn, calls=30):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / calls * 1e6
+
+    small = cases(t80, (2,))
+    for name, k in out.items():
+        _, fn, plain, _, _ = small[name]
+        k["host_us"], k["plain_host_us"] = host_us(fn), host_us(plain)
+        log(f"kernel dyadic {name} ([2,128,50,N]): equal to plain; "
+            f"{k['ms']:.4f} ms (device {k['device_ms']:.4f} ms, plain "
+            f"{k['plain_ms']:.3f} ms, bound {k['bound_ms']:.4f} ms by "
+            f"{k['bound_by']}); host {k['host_us']:.1f} us a call at "
+            f"[2,2,80,N] (plain {k['plain_host_us']:.1f} us)")
+    return out
+
+
 def hold_path_to_plain(run, same) -> dict:
-    """Call run() once with the four kernel wrappers and the MAC kernel's
-    three replaced, wherever the port's modules hold them, by recorders: the first call of each distinct
-    operand shape, layout and table set is also computed by the wrapper's
-    plain version on the same inputs and held to it with same(name, got,
-    want, what). Returns {kernel: [signature, ...]} of the shapes held; a
-    signature is (operand shape, operand strides, key shape or None, the
-    number of limbs divided out or None)."""
-    from fhe_gpt2_tpu_torch.core import ntt as nttmod, tks, tntt
+    """Call run() once with the four kernel wrappers, the MAC kernel's
+    three and the dyadic kernel's six replaced, wherever the port's modules
+    hold them, by recorders: the first call of each distinct operand shape,
+    layout and table set is also computed by the wrapper's plain version on
+    the same inputs and held to it with same(name, got, want, what).
+    Returns {kernel: [signature, ...]} of the shapes held; a signature is
+    (operand shape, operand strides, key shape or None, the number of limbs
+    divided out or None), and a dyadic wrapper's the shapes and strides of
+    its tensor arguments and its other arguments."""
+    import torch
+
+    from fhe_gpt2_tpu_torch.core import ntt as nttmod, tdyadic, tks, tntt
 
     def ntt_sig(x, t):
         return (tuple(x.shape), x.stride(), None, None), id(t)
@@ -1011,6 +1164,13 @@ def hold_path_to_plain(run, same) -> dict:
                  tuple(v.stride() for v in values), None, len(values)),
                 id(t))
 
+    def dyadic_sig(*args, **kw):
+        return (tuple((tuple(x.shape), x.stride())
+                      if isinstance(x, torch.Tensor) else x
+                      for x in (*args, *kw.values())
+                      if not hasattr(x, "moduli")) + tuple(kw),
+                id(next(x for x in args if hasattr(x, "moduli"))))
+
     wrappers = {"ntt_fwd": (tntt.ntt_forward, nttmod._ntt_stages, ntt_sig),
                 "ntt_inv": (tntt.ntt_inverse, nttmod._intt_stages, ntt_sig),
                 "keyswitch": (tks.fused_switch_key, tks.switch_key_plain,
@@ -1021,7 +1181,9 @@ def hold_path_to_plain(run, same) -> dict:
                 "add_lifted": (tks.add_lifted, tks.add_lifted_plain,
                                lift_sig),
                 "masked_sum": (tks.masked_sum, tks.masked_sum_plain,
-                               sum_sig)}
+                               sum_sig),
+                **{w: (getattr(tdyadic, w), getattr(tdyadic, w + "_plain"),
+                       dyadic_sig) for w in DYADIC_WRAPPERS}}
     held: dict = {name: {} for name in wrappers}
 
     def hold(name, out, plain, args, what):
@@ -1044,7 +1206,8 @@ def hold_path_to_plain(run, same) -> dict:
 
     def recorder(name, wrapper, plain, sig):
         def call(*args, **kw):
-            s, tables = sig(*args)
+            dyadic = name in DYADIC_WRAPPERS
+            s, tables = sig(*args, **kw) if dyadic else sig(*args)
             new = (s, tables) not in held[name]
             if new and name == "add_lifted":
                 # In place on the card: the plain version reads the operand
@@ -1055,6 +1218,8 @@ def hold_path_to_plain(run, same) -> dict:
                 held[name][s, tables] = s
                 if name == "add_lifted":
                     same(name, out, want, f"path {s[:3]}")
+                elif dyadic:
+                    same(name, out, plain(*args, **kw), f"path {s[:3]}")
                 else:
                     hold(name, out, plain, args, f"path {s[:3]}")
             return out

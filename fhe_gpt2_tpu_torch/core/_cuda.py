@@ -17,7 +17,9 @@ Nothing here runs at import: the first kernel launch builds and loads.
 the plain versions never touch it. ``mac`` counts the wrapper calls that
 launched an entry of ``csrc/mac.cu`` (``tks.hoisted_mac``,
 ``tks.add_lifted``, ``tks.masked_sum``: a masked sum of many terms is one
-call of several launches).
+call of several launches); ``dyadic`` the wrapper calls that launched an
+entry of ``csrc/dyadic.cu`` (``core/tdyadic.py``: the evaluator's tensor
+products, products, adds and batch sums).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("ntt", "keyswitch", "moddown", "mac")
+SOURCES = ("ntt", "keyswitch", "moddown", "mac", "dyadic")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -56,10 +58,15 @@ _ENTRIES = {
         "add_lifted": "p" * 6 + "i" * 5 + "p",
         "masked_sum": "pi" + "p" * 4 + "i" * 5 + "p",
     },
+    "dyadic": {
+        "dyadic_binary": "piiip",
+        "dyadic_tensor": "piip",
+        "dyadic_sum": "pip",
+    },
 }
 
 LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "keyswitch": 0, "moddown": 0,
-            "mac": 0}
+            "mac": 0, "dyadic": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()      # LAUNCHES and the first build and load
@@ -152,10 +159,12 @@ def _lib(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def call(lib: str, fn: str, *args, cdll: ctypes.CDLL | None = None) -> None:
-    """Launch one C entry on the device of its first tensor argument, made
-    the current device for the launch, and on this thread's current stream
-    of that device; raise if it reports an error. Tensors are passed by data
+def call(lib: str, fn: str, *args, cdll: ctypes.CDLL | None = None,
+         device: torch.device | None = None) -> None:
+    """Launch one C entry on the device of its first tensor argument (or
+    ``device``, where the arguments hold no tensor), made the current
+    device for the launch, and on this thread's current stream of that
+    device; raise if it reports an error. Tensors are passed by data
     pointer, the stream last. ``cdll`` takes the entry from another build of
     csrc/<lib>.cu than this tree's.
 
@@ -166,10 +175,16 @@ def call(lib: str, fn: str, *args, cdll: ctypes.CDLL | None = None) -> None:
     makes before capturing: the nvcc build, the library load and each
     instantiation's module load."""
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
-    entry = getattr(cdll or _lib(lib), fn)
-    with torch.cuda.device(dev):
-        rc = entry(*conv, torch.cuda.current_stream(dev).cuda_stream)
+    dev = device or next(a.device for a in args
+                         if isinstance(a, torch.Tensor))
+    entry = getattr(cdll or _libs.get(lib) or _lib(lib), fn)
+    here = torch.cuda.current_device()
+    idx = here if dev.index is None else dev.index
+    if idx == here:
+        rc = entry(*conv, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            rc = entry(*conv, torch._C._cuda_getCurrentRawStream(idx))
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {lib}.{fn} failed: error {rc}")
 

@@ -9,7 +9,10 @@ for uint32 chains, int64 for u64 chains). Key switching and mod-down go
 through ``core/tks.py`` and every transform through ``core/ntt.py``, which
 route int32 CUDA tensors to the hand-written kernels and int64 tensors (on
 any device) to the plain PyTorch ops, as the JAX package runs its u64
-engine on XLA ops.
+engine on XLA ops. The coefficient-wise arithmetic between them (the
+tensor product, plain and constant products, adds and batch sums) goes
+through ``core/tdyadic.py``, which routes the same way to
+``csrc/dyadic.cu``.
 
 The hoisted rotations decompose c1 once (``tks._decompose_core``, whose
 transforms are the NTT kernels on the card) and run only the key MAC
@@ -38,7 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import embedding, ntt as nttmod, seal, tks
+from . import embedding, ntt as nttmod, seal, tdyadic, tks
 from ..utils import telemetry
 from .context import CkksContext
 from .keys import GaloisKeys, KSwitchKey, PublicKey, SecretKey, make_rng, \
@@ -168,36 +171,31 @@ class Evaluator:
     def add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         assert a.level == b.level and _scales_close(a.scale, b.scale), (
             f"add: level/scale mismatch {a.level}/{a.scale} vs {b.level}/{b.scale}")
-        return Ciphertext(add_mod(a.data, b.data, self._t(a.level).q), a.scale,
-                          a.level)
+        return Ciphertext(tdyadic.add_mod(a.data, b.data, self._t(a.level)),
+                          a.scale, a.level)
 
     @telemetry.op("sub")
     def sub(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         assert a.level == b.level and _scales_close(a.scale, b.scale)
-        return Ciphertext(sub_mod(a.data, b.data, self._t(a.level).q), a.scale,
-                          a.level)
+        return Ciphertext(tdyadic.sub_mod(a.data, b.data, self._t(a.level)),
+                          a.scale, a.level)
 
     @telemetry.op("negate")
     def negate(self, a: Ciphertext) -> Ciphertext:
-        return Ciphertext(neg_mod(a.data, self._t(a.level).q), a.scale,
+        return Ciphertext(tdyadic.neg_mod(a.data, self._t(a.level)), a.scale,
                           a.level)
-
-    def _with_c0(self, a: Ciphertext, c0: torch.Tensor) -> torch.Tensor:
-        return torch.cat([c0[None], a.data[1:]])
 
     @telemetry.op("add_plain")
     def add_plain(self, a: Ciphertext, p: Plaintext) -> Ciphertext:
         assert a.level == p.level and _scales_close(a.scale, p.scale)
-        q = self._t(a.level).q
-        return Ciphertext(self._with_c0(a, add_mod(a.data[0], p.data, q)),
-                          a.scale, a.level)
+        return Ciphertext(tdyadic.add_mod(a.data[0], p.data, self._t(a.level),
+                                          rest=a.data[1:]), a.scale, a.level)
 
     @telemetry.op("sub_plain")
     def sub_plain(self, a: Ciphertext, p: Plaintext) -> Ciphertext:
         assert a.level == p.level and _scales_close(a.scale, p.scale)
-        q = self._t(a.level).q
-        return Ciphertext(self._with_c0(a, sub_mod(a.data[0], p.data, q)),
-                          a.scale, a.level)
+        return Ciphertext(tdyadic.sub_mod(a.data[0], p.data, self._t(a.level),
+                                          rest=a.data[1:]), a.scale, a.level)
 
     def _const(self, m: int, level: int) -> torch.Tensor:
         """[m mod q_i] over the limbs held below level, on the device: made
@@ -213,16 +211,14 @@ class Evaluator:
     def add_const(self, a: Ciphertext, value: float) -> Ciphertext:
         """a + value broadcast over slots (no level/scale cost)."""
         res = self._const(int(round(value * a.scale)), a.level)
-        q = self._t(a.level).q
-        return Ciphertext(self._with_c0(a, add_mod(a.data[0], res, q)),
-                          a.scale, a.level)
+        return Ciphertext(tdyadic.add_mod(a.data[0], res, self._t(a.level),
+                                          rest=a.data[1:]), a.scale, a.level)
 
     @telemetry.op("mul_const_int")
     def mul_const_int(self, a: Ciphertext, m: int) -> Ciphertext:
         """Multiply by an exact integer (scale unchanged)."""
-        t = self._t(a.level)
-        return Ciphertext(mul_mod(a.data, self._const(m, a.level), t.q,
-                                  t.ratio0, t.ratio1), a.scale, a.level)
+        return Ciphertext(tdyadic.mul_mod(a.data, self._const(m, a.level),
+                                          self._t(a.level)), a.scale, a.level)
 
     @telemetry.op("mul_const")
     def mul_const(self, a: Ciphertext, value: float,
@@ -235,8 +231,7 @@ class Evaluator:
     @telemetry.op("mul_plain")
     def mul_plain(self, a: Ciphertext, p: Plaintext) -> Ciphertext:
         assert a.level == p.level
-        t = self._t(a.level)
-        return Ciphertext(mul_mod(a.data, p.data, t.q, t.ratio0, t.ratio1),
+        return Ciphertext(tdyadic.mul_mod(a.data, p.data, self._t(a.level)),
                           a.scale * p.scale, a.level)
 
     def mul_vector(self, a: Ciphertext, values,
@@ -250,17 +245,9 @@ class Evaluator:
     def multiply(self, a: Ciphertext, b: Ciphertext,
                  relin: bool = True) -> Ciphertext:
         assert a.level == b.level and a.k == 2 and b.k == 2
-        t = self._t(a.level)
-        q = t.q
-
-        def mm(x, y):
-            return mul_mod(x, y, q, t.ratio0, t.ratio1)
-
-        d0 = mm(a.data[0], b.data[0])
-        d1 = add_mod(mm(a.data[0], b.data[1]), mm(a.data[1], b.data[0]), q)
-        d2 = mm(a.data[1], b.data[1])
-        out = Ciphertext(torch.stack([d0, d1, d2]), a.scale * b.scale,
-                         a.level)
+        out = Ciphertext(tdyadic.tensor_product(a.data, b.data,
+                                                self._t(a.level)),
+                         a.scale * b.scale, a.level)
         if relin:
             out = self.relinearize(out)
         return out
@@ -273,10 +260,8 @@ class Evaluator:
     def relinearize(self, a: Ciphertext) -> Ciphertext:
         assert a.k == 3 and self.relin_key is not None
         ks = self._switch_key(a.data[2], a.level, self.relin_key)
-        q = self._t(a.level).q
-        return Ciphertext(torch.stack([add_mod(a.data[0], ks[0], q),
-                                       add_mod(a.data[1], ks[1], q)]), a.scale,
-                          a.level)
+        return Ciphertext(tdyadic.add_mod(a.data[:2], ks, self._t(a.level)),
+                          a.scale, a.level)
 
     # -- rescale / mod switch -----------------------------------------------
 
@@ -346,9 +331,8 @@ class Evaluator:
         assert a.k == 2 and self.galois_keys is not None
         permuted = a.data.index_select(-1, self.ctx.galois_perm(galois_elt))
         ks = self._switch_key(permuted[1], a.level, self.galois_keys[galois_elt])
-        q = self._t(a.level).q
-        return Ciphertext(torch.stack([add_mod(permuted[0], ks[0], q), ks[1]]),
-                          a.scale, a.level)
+        return Ciphertext(tdyadic.add_mod(permuted[0], ks[0], self._t(a.level),
+                                          rest=ks[1:]), a.scale, a.level)
 
     def _hops(self, steps: int) -> list[int]:
         """Decompose a rotation into available key steps: one hop when the
@@ -409,7 +393,7 @@ class Evaluator:
         ctx = self.ctx
         l = a.level
         kt, tpoly, D = self._decompose(a)
-        q = self._t(l).q
+        t = self._t(l)
         out = []
         for s in steps:
             s = s % (ctx.n // 2)
@@ -423,7 +407,7 @@ class Evaluator:
             ks = self._mod_down_special(
                 self._hoisted_mac(tpoly, kt, elt, l, D), l)
             c0p = a.data[0].index_select(-1, ctx.galois_perm(elt))
-            r = Ciphertext(torch.stack([add_mod(c0p, ks[0], q), ks[1]]),
+            r = Ciphertext(tdyadic.add_mod(c0p, ks[0], t, rest=ks[1:]),
                            a.scale, l)
             for h in hops[1:]:
                 r = self.apply_galois(r, ctx.galois_elt_from_step(h))
@@ -450,13 +434,14 @@ class Evaluator:
         ctx = self.ctx
         l = a.level
         p_res, p_shoup = ctx.p_residues(l)
-        q = self._t(l).q
+        t = self._t(l)
+        q = t.q
         r = q.shape[0]                      # the data rows held
 
         def lift(ct_data):
             """P·ct in the extended basis: the special-limb residues of P·x
             are exactly zero, since every special prime divides P."""
-            pc = mul_mod_shoup(ct_data, p_res[:r], p_shoup[:r], q)
+            pc = tdyadic.mul_mod(ct_data, p_res[:r], t, p_shoup[:r])
             pad = pc.new_zeros((*pc.shape[:-2], ctx.k_sp, pc.shape[-1]))
             return torch.cat([pc, pad], dim=-2)
 

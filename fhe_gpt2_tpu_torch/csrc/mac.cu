@@ -99,12 +99,6 @@ __device__ __forceinline__ uint64_t mac_lazy(uint64_t acc, uint32_t a, uint32_t 
   return acc >= two_q2 ? acc - two_q2 : acc;
 }
 
-// acc mod q for any 64-bit acc; ratio = floor(2^64 / q).
-__device__ __forceinline__ uint32_t reduce64(uint64_t acc, uint64_t ratio, uint32_t q) {
-  const uint64_t r = acc - __umul64hi(acc, ratio) * q;
-  return (uint32_t)(r >= q ? r - q : r);
-}
-
 // The CTA's row (m, j) and the first word o0 of its output block; rows
 // outer, blocks inner.
 struct Place {

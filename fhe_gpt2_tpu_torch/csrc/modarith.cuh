@@ -25,6 +25,15 @@ __device__ __forceinline__ uint32_t mul_shoup(uint32_t a, uint32_t w, uint32_t w
   return r >= q ? r - q : r;
 }
 
+// acc mod q for any 64-bit acc; ratio = floor(2^64 / q), the NTT tables'
+// Barrett words (ratio1 << 32 | ratio0). The quotient estimate
+// floor(acc * ratio / 2^64) is at most one below floor(acc / q), so the
+// remainder lies in [0, 2q) before one conditional subtraction.
+__device__ __forceinline__ uint32_t reduce64(uint64_t acc, uint64_t ratio, uint32_t q) {
+  const uint64_t r = acc - __umul64hi(acc, ratio) * q;
+  return (uint32_t)(r >= q ? r - q : r);
+}
+
 // Montgomery: a*b*2^-32 mod q for a, b < q < 2^31, qneg = -q^-1 mod 2^32.
 // t = a*b + m*q is a multiple of 2^32 below 2^63, and t / 2^32 < q^2/2^32 + q
 // < 1.5q, so one conditional subtraction makes it canonical.

@@ -39,12 +39,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core import seal, tks
+from ..core import seal, tdyadic, tks
 from ..core.context import CkksContext
 from ..core.evaluator import (
     Ciphertext, Decryptor, Encryptor, Evaluator, Plaintext, _scales_close,
     fake_bootstrap, stack_cts, unstack_cts)
-from ..core.modmath import mod_sum
 from ..utils import telemetry
 
 # Bound on id()-keyed plaintext cache entries: numpy arrays take no weak
@@ -485,8 +484,8 @@ class CkksBackend:
             lambda: torch.from_numpy(a).to(device))
 
     def reduce_sum_batch(self, a, axis: int = 0):
-        return Ciphertext(mod_sum(a.data, self.ctx.tables(a.level).q,
-                                  axis=1 + axis), a.scale, a.level)
+        return Ciphertext(tdyadic.mod_sum(a.data, self.ctx.tables(a.level),
+                                          axis=1 + axis), a.scale, a.level)
 
     # -- double-hoisted LT path (see Evaluator.hoisted_rotations_ext) --------
 

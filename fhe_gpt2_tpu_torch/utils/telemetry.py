@@ -31,10 +31,12 @@ CUDA events and no counters (the ``run_resnet`` CLI's bootstrap times).
   and hoisted key products: each reads a key), ``ks.decompose`` (the
   hoisted rotations' shared digit decompositions), ``mac.calls`` (the
   hoisted key products and the LT engine's masked sums, ``core/tks.py``
-  ``hoisted_mac``/``masked_sum``) and ``mac.kernel`` (those of them that
-  launched ``csrc/mac.cu``).
-* A sealed program (``nn/backend.py``) keeps the op, key-switch and MAC
-  counters of its warm pass (``collect``, which counts even with the recorder off)
+  ``hoisted_mac``/``masked_sum``), ``mac.kernel`` (those of them that
+  launched ``csrc/mac.cu``), ``dyadic.calls`` (the evaluator's
+  coefficient-wise products, adds and batch sums, ``core/tdyadic.py``) and
+  ``dyadic.kernel`` (those of them that launched ``csrc/dyadic.cu``).
+* A sealed program (``nn/backend.py``) keeps the op, key-switch, MAC and
+  dyadic counters of its warm pass (``collect``, which counts even with the recorder off)
   and each graph replay adds them (``add``): a replay calls no Python. A
   capture records nothing (``muted``).
 
@@ -78,8 +80,9 @@ import torch.autograd.profiler as _prof
 
 MAX_SPANS = 2_000_000
 # The counters a sealed program's replay adds: its warm pass's ops, key
-# switches and MACs. A replay looks up no mask and encodes nothing.
-REPLAYED = ("op.", "ks", "mac.")
+# switches, MACs and dyadic calls. A replay looks up no mask and encodes
+# nothing.
+REPLAYED = ("op.", "ks", "mac.", "dyadic.")
 SPIN_CYCLES = 100_000          # the alignment marker's spin kernel
 
 _enabled = 0                   # enable() depth

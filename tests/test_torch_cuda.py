@@ -11,12 +11,14 @@ return canonical residues, and the mod-down's float32 estimate is summed in
 the same order on both sides.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
 from fhe_gpt2_tpu_torch.core import ntt as nttmod
-from fhe_gpt2_tpu_torch.core import _cuda, primes, tks, tntt
+from fhe_gpt2_tpu_torch.core import _cuda, primes, tdyadic, tks, tntt
 from fhe_gpt2_tpu_torch.core.context import CkksContext, CkksParams
 from fhe_gpt2_tpu_torch.core.evaluator import Decryptor, Encryptor, Evaluator
 from fhe_gpt2_tpu_torch.core.keys import KeyGenerator
@@ -25,7 +27,8 @@ from fhe_gpt2_tpu_torch.core.modmath import word_tensor
 pytestmark = pytest.mark.cuda
 
 # The four cluster kernels' launch counts: a run that makes no hoisted key
-# product and no masked sum launches no csrc/mac.cu entry.
+# product and no masked sum launches no csrc/mac.cu entry, and one with no
+# coefficient-wise op no csrc/dyadic.cu entry.
 FOUR = ("ntt_fwd", "ntt_inv", "keyswitch", "moddown")
 
 
@@ -303,21 +306,21 @@ def test_hoisted_decomposition_runs_on_the_ntt_kernels(cuda):
     assert tpoly.is_cuda and tpoly.shape == (D, ctx.L + ctx.k_sp, ctx.n)
     d = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
     assert d == {"ntt_fwd": 1, "ntt_inv": 1, "keyswitch": 0, "moddown": 0,
-                 "mac": 0}
+                 "mac": 0, "dyadic": 0}
     before = dict(_cuda.LAUNCHES)
     exts = ev.hoisted_rotations_ext(ct, [1, 5])
     d = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
     # Each rotation: its key product (hoisted_mac) and the lifted c0
     # (add_lifted), both in csrc/mac.cu.
     assert d == {"ntt_fwd": 1, "ntt_inv": 1, "keyswitch": 0, "moddown": 0,
-                 "mac": 4}
+                 "mac": 4, "dyadic": 0}
     before = dict(_cuda.LAUNCHES)
     for e in exts:
         ev.mod_down_ext(e, ct.level, ct.scale)
     d = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
     # Each mod-down call is its iNTT of the special limbs and md_fused.
     assert d == {"ntt_fwd": 0, "ntt_inv": 2, "keyswitch": 0, "moddown": 2,
-                 "mac": 0}
+                 "mac": 0, "dyadic": 0}
 
 
 def _bootstrap_run(dev):
@@ -1132,7 +1135,7 @@ def test_mesh_on_one_card_equals_single_device(cuda, composite):
         assert g.level == w.level and g.scale == w.scale
         assert torch.equal(g.data, w.data)
     path = [k for k in FOUR if not (composite and k == "ntt_fwd")]
-    assert all(launches[k] > 0 for k in path), launches
+    assert all(launches[k] > 0 for k in path + ["dyadic"]), launches
 
 
 @pytest.fixture
@@ -1460,3 +1463,272 @@ def test_sealed_bootstrap_at_the_cell_chain_equals_plain_macs(cell_boot,
     assert torch.equal(got.data, want.data)
     err = np.abs(np.real(dec.decrypt(got)) - z)
     assert err.mean() < 1e-3, err.mean()
+
+
+# ---------------------------------------------------------------------------
+# The dyadic kernels (csrc/dyadic.cu): the evaluator's tensor products,
+# products, adds and batch sums
+# ---------------------------------------------------------------------------
+
+DYADIC = ("tensor_product", "mul_mod", "add_mod", "sub_mod", "neg_mod",
+          "mod_sum")
+
+
+def _dyadic_cases(t, lead, rng, lazy=False):
+    """(name, kernel call, plain call) of every layout the evaluator gives
+    the wrappers, on ciphertexts [2, *lead, l, N] of the rows of t."""
+    cuda = t.q.device
+    l, n = t.q.shape[0], t.n
+
+    def w(mods, lead_):
+        x = np.stack([rng.integers(0, (2 if lazy else 1) * q, size=lead_ + (n,),
+                                   dtype=np.uint64).astype(np.uint32)
+                      for q in mods], axis=-2)
+        return word_tensor(x, cuda)
+
+    a, b, a3 = w(t.moduli, (2, *lead)), w(t.moduli, (2, *lead)), \
+        w(t.moduli, (3, *lead))
+    p, pb = w(t.moduli, ()), w(t.moduli, lead)
+    s3, pd = w(t.moduli, (2, *lead, 3)), w(t.moduli, (*lead, 1))
+    s6, pd2 = w(t.moduli, (2, *lead, 2, 2)), w(t.moduli, (*lead, 1, 2))
+    one = w(t.moduli, (2,))
+    big = w(t.moduli + t.moduli[:4], (2, *lead))[..., :l, :]
+    c = word_tensor(np.array([rng.integers(0, q) for q in t.moduli],
+                             dtype=np.uint64)[:, None], cuda)
+    T = tdyadic
+    cases = [
+        ("tensor", (T.tensor_product, a, b)),
+        ("square", (T.tensor_product, a, a)),
+        ("tensor_views", (T.tensor_product, big, a3[:2])),
+        ("tensor_broadcast", (T.tensor_product, a, one)),
+        ("mul", (T.mul_mod, a, b)), ("mul_plain", (T.mul_mod, a, p)),
+        ("mul_mask_batch", (T.mul_mod, a, pb)),
+        ("mul_mask_delta", (T.mul_mod, s3, pd)),
+        ("mul_mask_groups", (T.mul_mod, s6, pd2)),
+        ("mul_const", (T.mul_mod, big, c)),
+        ("add", (T.add_mod, a, big)), ("add_relin", (T.add_mod, a3[:2], b)),
+        ("sub", (T.sub_mod, a, b)), ("neg", (T.neg_mod, a3)),
+        ("add_plain_rest", (T.add_mod, a[0], p), {"rest": a[1:]}),
+        ("add_galois_rest", (T.add_mod, big[0], b[0]), {"rest": b[1:]}),
+        ("sub_const_rest", (T.sub_mod, a3[0], c), {"rest": a3[1:]})]
+    if lead:
+        cases.append(("sum", (T.mod_sum, a), {"axis": 1}))
+    out = []
+    for name, (fn, *args), *kw in cases:
+        kw = dict(kw[0]) if kw else {}
+        plain = getattr(tdyadic, fn.__name__ + "_plain")
+        out.append((name, lambda fn=fn, args=args, kw=kw: fn(*args, t, **kw),
+                    lambda plain=plain, args=args, kw=kw: plain(*args, t,
+                                                                **kw)))
+    return out
+
+
+@pytest.mark.parametrize("logn", [11, 15, 16])
+@pytest.mark.parametrize("lead", [(), (2,), (2, 8)])
+@pytest.mark.parametrize("lazy", [False, True])
+def test_dyadic_kernels_equal_plain(cuda, logn, lead, lazy):
+    """Every dyadic entry at every layout the evaluator gives it (rows of
+    their own, a plaintext or a batched mask broadcast, a per-limb
+    constant, limb-prefix views, component slices, a ciphertext's other
+    components copied through, a batch sum) torch.equal to its plain
+    version, on canonical words and on lazy ones in [0, 2q), each one
+    launch."""
+    t = nttmod.make_ntt_tables(primes.gen_primes_balanced(
+        29, 22 if logn == 15 else 5, 2 << logn), 1 << logn, cuda)
+    rng = np.random.default_rng(logn + len(lead) + lazy)
+    for name, fn, plain in _dyadic_cases(t, lead, rng, lazy):
+        before = _cuda.LAUNCHES["dyadic"]
+        got = fn()
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["dyadic"] == before + 1, name
+        want = plain()
+        assert got.shape == want.shape and torch.equal(got, want), name
+
+
+def test_dyadic_kernels_at_the_granite_batch(cuda):
+    """The Granite cell's batches (2 x 128 ciphertexts of 50 limbs at
+    N = 2^15): the tensor product, a constant product, c0 added with the
+    other component copied, and the sum over the 128."""
+    t = nttmod.make_ntt_tables(primes.gen_primes_balanced(
+        27, 50, 1 << 16), 1 << 15, cuda)
+    rng = np.random.default_rng(128)
+    cases = {name: (fn, plain) for name, fn, plain
+             in _dyadic_cases(t, (128,), rng)}
+    for name in ("tensor", "square", "mul_const", "add_plain_rest", "sum"):
+        fn, plain = cases[name]
+        got = fn()
+        want = plain()
+        assert torch.equal(got, want), name
+        del got, want
+        torch.cuda.empty_cache()
+
+
+def test_dyadic_kernels_refuse_other_layouts(cuda):
+    """Rows off the 16-byte grid, strided words and batches that do not
+    merge into two groups raise, and nothing launches."""
+    t = _mac_tables(cuda, 11, 5)
+    rng = np.random.default_rng(6)
+    a = _residues(rng, t.moduli, (2, 3), t.n, cuda)
+    before = _cuda.LAUNCHES["dyadic"]
+    with pytest.raises(ValueError, match="16-byte"):
+        tdyadic.mul_mod(_offset(a, 1), a, t)
+    with pytest.raises(ValueError, match="16-byte"):
+        tdyadic.tensor_product(a, _offset(a, 2), t)
+    x = _residues(rng, t.moduli, (2, 3, 4, 5, 6), t.n, cuda)
+    with pytest.raises(ValueError, match="4 strided groups"):
+        tdyadic.add_mod(x.permute(0, 4, 3, 2, 1, 5, 6),
+                        x.permute(0, 4, 3, 2, 1, 5, 6).contiguous(), t)
+    with pytest.raises(ValueError):
+        tdyadic.mod_sum(x.transpose(0, 2), t, axis=1)
+    assert _cuda.LAUNCHES["dyadic"] == before
+
+
+def test_dyadic_kernels_in_a_cuda_graph_equal_plain(cuda):
+    """A tensor product, a constant product, a c0 add with its copy and a
+    batch sum captured in one torch.cuda.graph: each replay, on inputs
+    rewritten in place, gives the plain versions' words."""
+    t = _mac_tables(cuda, 15, 24)
+    n = t.n
+    rng = np.random.default_rng(8)
+    a = _residues(rng, t.moduli, (2, 4), n, cuda)
+    b = _residues(rng, t.moduli, (2, 4), n, cuda)
+    p = _residues(rng, t.moduli, (), n, cuda)
+    c = word_tensor(np.array([7 + i for i in range(24)], dtype=np.uint64)
+                    [:, None], cuda)
+
+    def step(T):
+        return (T.tensor_product(a, b, t), T.mul_mod(a, c, t),
+                T.add_mod(a[0], p, t, rest=a[1:]), T.mod_sum(a, t, axis=1))
+
+    class Plain:
+        pass
+
+    plain = Plain()
+    for k in DYADIC:
+        setattr(plain, k, getattr(tdyadic, k + "_plain"))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(tdyadic)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step(tdyadic)
+    for seed in (9, 10):
+        g = np.random.default_rng(seed)
+        a.copy_(_residues(g, t.moduli, (2, 4), n, cuda))
+        p.copy_(_residues(g, t.moduli, (), n, cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(outs, step(plain)):
+            assert torch.equal(got, want)
+
+
+@contextlib.contextmanager
+def _dyadic_held():
+    """The dyadic wrappers replaced by recorders: the first call of each
+    operand signature is also computed by the plain version on the same
+    inputs and held torch.equal to it. Yields {wrapper: signatures}."""
+    held = {k: set() for k in DYADIC}
+    real = {k: getattr(tdyadic, k) for k in DYADIC}
+    plain = {k: getattr(tdyadic, k + "_plain") for k in DYADIC}
+
+    def sig(args, kw):
+        return tuple((tuple(x.shape), x.stride())
+                     if isinstance(x, torch.Tensor) else
+                     len(x.moduli) if hasattr(x, "moduli") else x
+                     for x in (*args, *kw.values())) + tuple(kw)
+
+    def recorder(name):
+        def call(*args, **kw):
+            s = sig(args, kw)
+            got = real[name](*args, **kw)
+            if s not in held[name]:
+                held[name].add(s)
+                want = plain[name](*args, **kw)
+                assert torch.equal(got, want), (name, s)
+            return got
+        return call
+
+    try:
+        for k in DYADIC:
+            setattr(tdyadic, k, recorder(k))
+        yield held
+    finally:
+        for k, f in real.items():
+            setattr(tdyadic, k, f)
+
+
+def test_dyadic_kernels_equal_plain_at_the_cell_bootstrap_shapes(cell_boot):
+    """One eager bootstrap of the served ResNet with the dyadic wrappers
+    recording: every signature held torch.equal to its plain version
+    (EvalMod's products and squares, the constant products and adds, the
+    lifted c0 of the unrotated baby step, the c0 adds of the rotations)."""
+    B, ct, _, _ = cell_boot
+    with _dyadic_held() as held:
+        B.boot.bootstrap(ct)
+        torch.cuda.synchronize()
+    for k in ("tensor_product", "mul_mod", "add_mod"):
+        assert held[k], (k, held)
+
+
+def test_sealed_bootstrap_at_the_cell_chain_equals_plain_dyadic(cell_boot,
+                                                               monkeypatch):
+    """A sealed bootstrap (the dyadic kernels inside the graphs) at the
+    served ResNet's chain gives the words of the same bootstrap run eagerly
+    with the plain dyadic versions patched in, and counts every dyadic
+    call as a kernel launch."""
+    from fhe_gpt2_tpu_torch.utils import telemetry
+    B, ct, dec, z = cell_boot
+    boot = B.boot
+    boot.bootstrap_jitted(ct)            # warm passes and captures
+    with telemetry.enable():
+        got = boot.bootstrap_jitted(ct)  # replays
+        torch.cuda.synchronize()
+    c = telemetry.snapshot().counters
+    telemetry.reset()
+    assert c["dyadic.calls"] == c["dyadic.kernel"] > 0, c
+    for k in DYADIC:
+        monkeypatch.setattr(tdyadic, k, getattr(tdyadic, k + "_plain"))
+    want = boot.bootstrap(ct)
+    assert got.scale == want.scale and got.level == want.level
+    assert torch.equal(got.data, want.data)
+    err = np.abs(np.real(dec.decrypt(got)) - z)
+    assert err.mean() < 1e-3, err.mean()
+
+
+def test_dyadic_kernels_equal_plain_in_a_gpt2_block(cuda):
+    """A toy GPT-2 block (its LayerNorms, the attention over the Δ batch
+    and the MLP) with the dyadic wrappers recording: every signature held
+    to its plain version, the batch sums among them."""
+    with _dyadic_held() as held:
+        _gpt2_block_run(cuda)
+        torch.cuda.synchronize()
+    for k in ("tensor_product", "mul_mod", "add_mod", "mod_sum"):
+        assert held[k], (k, held)
+
+
+def test_dyadic_kernels_equal_plain_in_a_tiny_granite_core(cuda, tmp_path):
+    """One request of the granite4h.ssd16 driver at a tiny width (hidden
+    64, 8 tokens, logN = 10, 10 pairs) with the dyadic wrappers recording:
+    the conv and SSD sums over Δ, the decay products and the gated norm's
+    ops held to their plain versions."""
+    import json
+
+    from fhe_bench import drivers, harness
+    spec = harness.load_spec()
+    _, cfg, traffic = harness.cell(spec, "granite4h.ssd16")
+    cfg = dict(cfg, hidden_size=64, mamba_n_heads=16, mamba_d_head=8,
+               mamba_d_state=8, vocab_size=997)
+    flags = ["--seq", "8", "--hidden", "64", "--composite", "--logn", "10",
+             "--levels", "10", "--log-scale", "54", "--nsp", "4",
+             "--digit-keys"]
+    traffic = dict(json.loads(json.dumps(traffic)), seq=8, pool=2)
+    drv = drivers.load(traffic["driver"]).Driver(cfg, traffic, 3000000019,
+                                                 "cuda", flags)
+    drv.setup()
+    with _dyadic_held() as held:
+        drv.request(0)
+        torch.cuda.synchronize()
+    for k in ("tensor_product", "mul_mod", "add_mod", "mod_sum"):
+        assert held[k], (k, held)

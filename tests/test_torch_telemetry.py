@@ -391,7 +391,7 @@ def test_only_records_the_named_spans(unit):
     s = telemetry.snapshot()
     assert [sp.name for sp in s.spans[:inner]] == ["refresh", "bootstrap"]
     assert [sp.name for sp in s.spans[inner:]] == ["op.add"]
-    assert s.counters == {"op.add@%d" % unit["ctx"].L: 1}
+    assert s.counters == {"op.add@%d" % unit["ctx"].L: 1, "dyadic.calls": 1}
     assert s.spans[1].synced and s.spans[1].device_ms is None
     n = len(s.spans)
     with telemetry.span("bootstrap"):

@@ -1,9 +1,9 @@
 """The recorder (fhe_gpt2_tpu_torch/utils/telemetry.py) over a sealed
 bootstrap on the card.
 
-A graph replay calls no Python, so its op, key-switch and MAC counts are
-the ones its stages' warm passes recorded (every MAC call on the card
-launching the kernel): a replayed bootstrap must add
+A graph replay calls no Python, so its op, key-switch, MAC and dyadic
+counts are the ones its stages' warm passes recorded (every MAC and dyadic
+call on the card launching its kernel): a replayed bootstrap must add
 exactly what one eager bootstrap counts. Its stages' CUDA events must
 resolve, and their device ms must cover the synchronized host wall of the
 bootstrap. Skips without a card; imports neither jax nor fhe_gpt2_tpu:
@@ -73,6 +73,7 @@ def test_sealed_replay_counts_and_times_one_bootstrap(boot):
     replayed = _counts()
     assert eager["ks"] > 0 and replayed == eager
     assert eager["mac.kernel"] == eager["mac.calls"] > 0, eager
+    assert eager["dyadic.kernel"] == eager["dyadic.calls"] > 0, eager
     spans = telemetry.snapshot().spans
     [whole] = [s for s in spans if s.name == "bootstrap"]
     stages = [s for s in spans if s.name.startswith("boot.")]
